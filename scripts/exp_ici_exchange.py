@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""ICI wire-cost experiment: dense vs compact exchange x routing x cache
+"""Interconnect wire-cost experiment: dense vs compact exchange x routing x cache
 x Zipf skew, on the virtual CPU mesh.
 
 The reference's skew experiment (exp_cache_size_and_skew.py) charts
-cache hit rate; on a TPU mesh the analogous currency is ICI bytes per
+cache hit rate; on a device mesh the analogous currency is interconnect bytes per
 query — replica hits and affinity-routed locality keep lanes on the
 all_to_all diagonal, which never crosses the wire. Uses the measured
 device-side counters (parallel/sharded.py: ici_bytes/ici_lanes/

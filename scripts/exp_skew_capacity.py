@@ -6,7 +6,7 @@ Reproduces the reference's headline experiment grid
 cache-budget) on the routed-split capacity family: alpha resamples the
 query stream from a fixed pool (io/skew.py, the reference's
 create_queries.py protocol), and the probe budget p is the family's
-serving-resource knob (the TPU analog of cache ratio: both trade memory
+serving-resource knob (the analogue of cache ratio: both trade memory
 touches for recall on the hot mass).
 
 Grid: alpha in {0, 0.75, 1.25} x p in {16, 32, 64} at 4.19M rows on the

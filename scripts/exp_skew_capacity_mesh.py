@@ -121,7 +121,6 @@ def main() -> None:
     )
     ff = ShardedFastFlatIndex.from_ext(
         ds.ext_dev, n, mesh, dim=d, row_source=ds.row_source,
-        interpret=True,
     )
     fpool = np.asarray(ds.queries)  # this leg's query pool (own GT)
     for alpha in ALPHAS:

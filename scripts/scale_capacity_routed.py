@@ -29,8 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 # SHINE_CR_CPU=1: run the WHOLE script on the host CPU (tiny N) — a
-# pre-flight for the unattended on-chip queue; search falls back to the
-# XLA engine automatically (routed_split.py engine="auto")
+# rehearsal before a run on the card
 _CPU_SMOKE = os.environ.get("SHINE_CR_CPU") == "1"
 if _CPU_SMOKE:
     import jax
@@ -121,9 +120,8 @@ def main() -> None:
         )
         os.makedirs(os.path.dirname(gt_path), exist_ok=True)
         np.save(gt_path, gt)
-        # checkpoint AFTER the sweep: the 100M comp download is ~14 GB
-        # through the tunnel (an hour-class transfer when it degrades,
-        # r3g) — measure first so a timeout still records the sweep.
+        # checkpoint AFTER the sweep: the 100M comp download is ~14 GB —
+        # measure first so a timeout still records the sweep.
         # SHINE_CR_SAVE=0 skips it entirely.
         save_after = os.environ.get("SHINE_CR_SAVE", "1") == "1"
     if os.environ.get("SHINE_GT_CROSSCHECK", "1") == "1":

@@ -1,10 +1,10 @@
-"""shine_tpu — a TPU-native distributed HNSW index-and-query engine.
+"""shine_tpu — an accelerator-native distributed HNSW index-and-query engine.
 
 From-scratch rebuild of the capabilities of SHINE (disaggregated-memory HNSW
-over one-sided RDMA; reference at /root/reference, see SURVEY.md) designed
-for TPU hardware: fixed-shape batched graph traversal under `jax.jit`,
-MXU-friendly distance kernels (Pallas), index sharding across a
-`jax.sharding.Mesh` with compute-at-data remote row gathers in place of RDMA
+over one-sided RDMA; see SURVEY.md) in JAX: fixed-shape batched graph
+traversal under `jax.jit`, matmul-shaped distance scans (XLA, and a
+Pallas kernel for the GPU), index sharding across a `jax.sharding.Mesh`
+with compute-at-data remote row gathers in place of RDMA
 READs, hot-vertex replication in place of the compute-node cache, and
 k-means query-to-shard routing.
 """

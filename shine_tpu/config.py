@@ -17,31 +17,49 @@ METRIC_IP = 1  # 1 - <a,b>, matching reference distance.hh:139
 
 _METRIC_NAMES = {"l2": METRIC_L2, "ip": METRIC_IP}
 
-# --index auto family thresholds (rows PER CHIP), all measured on chip:
-# - the packed-bf16 fastflat scan is the speed family to ~20M rows/chip
-#   (6.05 ns/row marginal, 20.97M @ recall 0.9968 — TPU_NOTES "Rate
-#   model"); beyond that the exact-re-rank layout stops fitting HBM.
-# - the routed split capacity layout (models/routed_split.py) holds the
-#   reference's >=0.95 operating point (scripts/datasets.py:13-20)
-#   through ~64M rows/chip: 41.9M v3 recipe measures 0.955 @ 20.4k QPS,
-#   ~7x the exact split scan (results/scale_capacity_routed.jsonl) —
-#   while at 100M its nearest-assignment coverage ceiling (the "T=32
-#   law", TPU_NOTES) tops out at 0.91.
-# - above the routed ceiling only the exact int8 split scan keeps
-#   >=0.95 (100.66M rows on one chip @ recall 1.0000, 1.25k QPS).
-# Env overrides (tests + operating-point revisions without a release):
-# SHINE_AUTO_FASTFLAT_MAX, SHINE_AUTO_ROUTED_MAX.
-AUTO_FASTFLAT_MAX_ROWS = 20e6
+# The routed -> split boundary of --index auto is a recall rule: the
+# routed split layout (models/routed_split.py) holds the reference's
+# >=0.95 operating point (scripts/datasets.py:13-20) through ~64M rows per
+# device (41.9M measures 0.955), while at 100M its nearest-assignment
+# coverage tops out at 0.91; above it only the exact int8 split scan
+# keeps >=0.95. The fastflat ceiling is a memory rule (fastflat_max_rows).
+# Env overrides: SHINE_AUTO_FASTFLAT_MAX, SHINE_AUTO_ROUTED_MAX.
 AUTO_ROUTED_MAX_ROWS = 64e6
 
 
-def auto_index_family(n_rows: int, shards: int = 1) -> str:
-    """The --index auto rule: pick the fastest family whose measured
-    recall envelope clears the reference's 0.95 operating point at this
-    many rows per chip (reference tunes per dataset, datasets.py)."""
+def device_bytes() -> int:
+    """Bytes one device may hold: SHINE_HBM_BYTES when set, else the
+    device's own memory_stats()["bytes_limit"]. A device that reports no
+    limit (the CPU backend) is an error unless the override is set."""
+    env = os.environ.get("SHINE_HBM_BYTES")
+    if env:
+        return int(float(env))
+    import jax
+
+    dev = jax.devices()[0]
+    stats = dev.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise RuntimeError(
+            f"{dev.platform} device reports no memory bytes_limit; "
+            "set SHINE_HBM_BYTES"
+        )
+    return int(stats["bytes_limit"])
+
+
+def fastflat_max_rows(dim: int) -> int:
+    """Rows per device the exact-re-rank fastflat layout may hold."""
+    from shine_tpu.models.flat import INDEX_MEMORY_SHARE, fastflat_row_bytes
+
+    return int(INDEX_MEMORY_SHARE * device_bytes() / fastflat_row_bytes(dim))
+
+
+def auto_index_family(n_rows: int, dim: int, shards: int = 1) -> str:
+    """The --index auto rule: the fastest family that fits the device
+    and whose recall envelope clears the reference's 0.95 operating
+    point at this many rows per device."""
     per_chip = n_rows / max(shards, 1)
-    fmax = float(os.environ.get("SHINE_AUTO_FASTFLAT_MAX",
-                                AUTO_FASTFLAT_MAX_ROWS))
+    env_f = os.environ.get("SHINE_AUTO_FASTFLAT_MAX")
+    fmax = float(env_f) if env_f else fastflat_max_rows(dim)
     rmax = float(os.environ.get("SHINE_AUTO_ROUTED_MAX",
                                 AUTO_ROUTED_MAX_ROWS))
     if per_chip <= fmax:
@@ -112,10 +130,7 @@ class SearchParams:
     ef: int = 128
     frontier: int = 4
     max_steps: int = 0  # 0 -> auto
-    pallas_gather: bool = False  # fetch candidate rows with the pipelined
-    # DMA kernel (ops/pallas_gather.py) instead of XLA gather — for the
-    # in-loop gather cliff documented in docs/TPU_NOTES.md
-    entry_mode: str = "dense"  # "dense": one (B, U) MXU tile over the
+    entry_mode: str = "dense"  # "dense": one (B, U) matmul tile over the
     # upper-level vertices seeds the layer-0 beam with the global best
     # entries (strictly better than greedy descent, no descent loops);
     # "descent": the reference's greedy per-level walk (hnsw.hh:331-393)
@@ -126,7 +141,7 @@ class SearchParams:
     # exit for the lockstep batch (the while_loop otherwise runs to the
     # LAGGARD query's ef-convergence; profile_hnsw step-ladder). Trades
     # a little tail recall for fewer sequential steps.
-    exchange: str = "dense"  # sharded-search ICI pattern: "dense" =
+    exchange: str = "dense"  # sharded-search exchange pattern: "dense" =
     # all_gather + psum_scatter owner-compute (O(S*B*K) lanes/step);
     # "compact" = bucketed all_to_all owner RPC (O(B*K) lanes/step, exact
     # multi-round overflow) — parallel/sharded.py:_owner_rpc

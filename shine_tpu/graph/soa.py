@@ -1,6 +1,6 @@
 """Structure-of-arrays HNSW graph.
 
-The TPU-native layout replacing the reference's variable-size remote node
+The accelerator-native layout replacing the reference's variable-size remote node
 records (/root/reference/src/node/node.hh:10-19 — header | uid | level |
 components | per-level neighbor lists). Variable-degree, variable-level
 nodes become fixed-shape padded tensors (SURVEY.md §7.1):
@@ -153,8 +153,8 @@ def host_search(
     *,
     threads: int = 0,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Native host-side k-NN over the graph — the semantic oracle the TPU
-    batched search is tested against (reference knn, hnsw.hh:253-307)."""
+    """Native host-side k-NN over the graph — the semantic oracle the
+    batched device search is tested against (reference knn, hnsw.hh:253-307)."""
     import os
 
     from shine_tpu import native

@@ -2,7 +2,7 @@
 
 The reference checkpoints each memory node's raw index image prefixed by the
 allocated size (/root/reference/src/memory_node.hh:130-209), with parameters
-encoded in the filename (compute_node.cc:428-430). The TPU-native index is a
+encoded in the filename (compute_node.cc:428-430). This index is a
 structure-of-arrays (graph/soa.py), so a checkpoint is simply the arrays plus
 a geometry header; `RemotePtr`s stay valid across reload for the same reason
 as the reference's (they are (shard,row) ids, not addresses).

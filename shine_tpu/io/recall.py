@@ -3,7 +3,7 @@
 Recall is the reference's correctness oracle
 (/root/reference/src/compute_node.cc:578-600): for each query, the fraction
 of returned ids that appear in the true top-k. Brute force runs as chunked
-matmuls so it can use the MXU (or CPU BLAS) for large sets.
+matmuls so it can use the accelerator (or CPU BLAS) for large sets.
 """
 
 from __future__ import annotations
@@ -98,8 +98,8 @@ def recall_at_k_eps(
     Id-based recall punishes near-ties that are physically
     indistinguishable: at 10M synthetic rows the gap between the 10th
     and 11th neighbor is far below bf16 scan precision, capping id
-    recall at ~0.91 while every returned row is within 1e-4 of optimal
-    (docs/TPU_NOTES.md). Big-ann-benchmarks reports the same metric as
+    recall at ~0.91 while every returned row is within 1e-4 of optimal.
+    Big-ann-benchmarks reports the same metric as
     an alternative for exactly this reason. Distances are computed
     exactly (f32) on device against the device-resident base.
     """
@@ -266,8 +266,8 @@ def numpy_subset_gt(
 
     Reference role: recall is the reference's correctness oracle
     (compute_node.cc:578-600) — which is only an oracle if the GT is
-    right. The r4 incident (TPU DEFAULT matmul truncating the f32 GT
-    leg to bf16-grade) proved device-side GT can corrupt while every
+    right. A DEFAULT-precision matmul truncating the f32 GT leg to
+    bf16 grade once proved device-side GT can corrupt while every
     device-side instrument (margin/eps) consumes the same distances and
     stays blind; this numpy twin is the independent witness."""
     m = metric_id(metric)

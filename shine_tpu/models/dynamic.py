@@ -2,12 +2,12 @@
 
 The reference's defining capability is concurrent online insertion —
 compute nodes stream vectors into the shared remote graph while it serves
-queries (/root/reference/src/hnsw/hnsw.hh:40-251, scheduler.hh). The TPU
-equivalent wraps the batched insert rounds of models/build.py: capacity is
+queries (reference src/hnsw/hnsw.hh:40-251, scheduler.hh). The
+equivalent here wraps the batched insert rounds of models/build.py: capacity is
 pre-allocated (the analogue of the MN memory budget, constants.hh:7),
 levels are pre-drawn for the whole capacity (replacing the remote FAA
 allocator), and `add()` appends vectors + runs deterministic insert
-rounds. `searcher()` snapshots the current graph for the batched TPU
+rounds. `searcher()` snapshots the current graph for the batched device
 search — snapshot-isolation queries, replacing the reference's lock-free
 read protocol (readers there tolerate torn neighbor lists; here they see
 a consistent prefix of the insert history).

@@ -1,8 +1,7 @@
 """Routed (cluster-pruned) serving over the SPLIT capacity layout.
 
-The flat split scan reads every row per batch and is VPU-select-bound
-(~9.4-16.8 ns/row, docs/TPU_NOTES.md 'Split kernel operating points') —
-~1-2k QPS at 100M rows. This module trades exactness-by-sweep for
+The flat split scan reads every row per batch, so its cost grows with
+the table. This module trades exactness-by-sweep for
 exactness-by-re-rank over a PRUNED candidate set: rows are clustered
 (balanced k-means, the capacity_assign scheme shared with models/ivf.py
 and parallel/placement.py), stored cluster-major in the 136 B/row int8
@@ -12,18 +11,14 @@ affinity-routed tile-shared union of ivf_routed_search
 regen re-rank (ops/distance.py:regen_rerank_topk) restoring f32
 precision on the survivors.
 
-The hot path is the routed class-max Pallas kernel
-(ops/pallas_scan_routed.py): a prefetched (G, P) column table drives
-cluster-block DMAs and the select stays fused in VMEM — the plain-XLA
-formulation materializes the (B, P*cap) score tensor and spent 203 of
-228 ms/batch inside approx_max_k over 104k lanes (measured 4.2M,
-results/profile_routed_split.jsonl). The XLA path is kept as the
-CPU/test engine with identical class-max semantics.
+The scan (scan_select) gathers each tile's granted cluster blocks and
+runs one bf16 einsum over them plus the class-max reduce, in XLA.
 
 Reference role: the reference serves its 100M envelope by pruning
 traversal to ~ef*M rows via the HNSW graph (hnsw.hh:253-307) over
 5 MNs x 44 GB (memory_node.hh:112-125); here the pruning is coarse
-clusters + MXU block scans, sized so ONE chip holds the whole envelope.
+clusters + matmul block scans, sized so ONE device holds the whole
+envelope.
 Routing parity: query->CN affinity batching (query_router.hh:353-370).
 
 Ingestion never materializes the f32 base: cluster assignment streams
@@ -233,7 +228,6 @@ class RoutedSplitIndex:
         kk: int = 0,
         batch_size: int = 2048,
         preloaded=None,
-        engine: str = "auto",
         with_dists: bool = True,
         fallback: float = 0.5,
     ) -> tuple[np.ndarray, np.ndarray]:
@@ -244,17 +238,13 @@ class RoutedSplitIndex:
         32 below C~8k, deepening to 128 at the 100M-class C~26k).
         shared: per-tile granted union width P (default 3*probes/2).
         kk: scan survivors per query fed to the exact re-rank
-        (default 8*k, <= cls). engine: "pallas" (TPU hot path), "xla"
-        (CPU/tests, identical class-max semantics), "auto" by backend.
-        Coverage (granted wish fraction) lands in self.last_coverage —
+        (default 8*k, <= cls). Coverage (granted wish fraction) lands in self.last_coverage —
         size `shared` so coverage ~1 (measured knobs:
         scripts/scale_capacity_routed.py). fallback > 0 makes recall a
         guarantee anyway: queries whose own granted-wish fraction falls
         below it re-run in narrow tiles (T=16) wide enough to grant
         EVERY wish (shared = 16*probes), the ivf.py search_routed spill
         pattern; count in self.last_fallback."""
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
         if probes <= 0:
             probes = _auto_probes(self.C)
         tile, shared = _auto_knobs(self.C, probes, tile, shared)
@@ -286,7 +276,7 @@ class RoutedSplitIndex:
                     q_dev, lo,
                     k=k, p=probes, P=shared, T=tile, kk=kk,
                     metric=self.metric, C=self.C, cap=self.cap,
-                    cls=self.cls, batch=batch_size, engine=engine,
+                    cls=self.cls, batch=batch_size,
                 )
             )
             covs.append(parts[-1][2])
@@ -320,7 +310,7 @@ class RoutedSplitIndex:
                     jnp.asarray(qs), 0,
                     k=k, p=probes, P=Ps, T=Ts, kk=kk,
                     metric=self.metric, C=self.C, cap=self.cap,
-                    cls=self.cls, batch=bucket, engine=engine,
+                    cls=self.cls, batch=bucket,
                 )
                 out_i[need] = np.asarray(fb[1])[: len(need)]
                 if with_dists:
@@ -348,8 +338,8 @@ class RoutedSplitIndex:
 
 def _auto_probes(C: int) -> int:
     """Measured >=0.95 probe frontier by coarse-cluster count (the
-    nearest-assignment ceiling deepens with C — TPU_NOTES "T=32 law" +
-    the r4a 100M deep-probe sweep, results/scale_capacity_routed.jsonl):
+    nearest-assignment ceiling deepens with C — the routing-coverage
+    study and the 100M deep-probe sweep):
     C~1.1k (4.19M rows) p=32 -> 0.9954; C~10.7k (41.9M) p=48 -> 0.9693
     (p=32 sits at the 0.95 edge); C~25.8k (100.66M) p=96 -> 0.9584,
     p=128 -> 0.9621. 16*ceil(C/4096) clamped to [32, 128] passes
@@ -360,8 +350,7 @@ def _auto_probes(C: int) -> int:
 def _auto_knobs(C: int, probes: int, tile: int, shared: int):
     """The measured (tile, shared) auto rule, shared by every routed
     split search/cost_counters site (single-chip + SPMD): the
-    routing-coverage study (TPU_NOTES "the T=32 law",
-    results/route_coverage.jsonl) shows big-C grants need narrow tiles
+    routing-coverage study shows big-C grants need narrow tiles
     and ~12x-probes width; small-C (<= ~4k) shares fine at T=64 / 6x.
     Over-grant is linear scan cost; under-grant is covered by the
     fallback spill either way. tile/shared <= 0 = auto."""
@@ -372,8 +361,7 @@ def _auto_knobs(C: int, probes: int, tile: int, shared: int):
     # a tile of T queries x p wishes can never want more than T*p
     # distinct clusters — granting past that is pure wasted scan (the
     # full-grant bound; at 0.8B-class C the tile overlap vanishes and
-    # this bound IS the coverage-1 setting, results/route_coverage.jsonl
-    # "-rc" rows)
+    # this bound IS the coverage-1 setting)
     return tile, min(shared, tile * probes, C)
 
 
@@ -389,47 +377,37 @@ def _spill_plan(n_need: int, probes: int, C: int):
 
 
 def scan_select(comp, aux_r, gid, q_s, cols, *, C: int, T: int, cap: int,
-                cls: int, kk: int, engine: str):
+                cls: int, kk: int):
     """Routed class-max scan + per-query survivor extraction: returns
     cand (B, kk) GLOBAL row ids (-1 invalid), affinity-sorted query
     order. Shared by the single-chip dispatch and the cluster-sharded
     SPMD path (parallel/routed_sharded.py) — `gid` carries global ids,
     so the caller's table layout (whole or per-shard slice) is opaque.
     C is the caller's cluster count for THIS table (C_loc on a shard);
-    comp may carry ingest-pad rows past (C+1)*cap."""
-    from shine_tpu.ops.pallas_scan_routed import routed_classmax_scan
-
+    comp may carry ingest-pad rows past (C+1)*cap. Invalid columns
+    point at the PAD cluster (id C, nrm = NEG), whose rows never win."""
     B, dq = q_s.shape
     G, P = cols.shape
     members = cap // cls
     dpc = comp.shape[1]
-    if engine == "pallas" or engine == "interpret":
-        qpad = jnp.zeros((B, dpc), jnp.float32)
-        qpad = qpad.at[:, :dq].set(q_s).astype(jnp.bfloat16)
-        best, code = routed_classmax_scan(
-            comp, aux_r, qpad, cols, T=T, cap=cap, cls=cls,
-            interpret=(engine == "interpret"),
-        )
-    else:
-        # XLA emulation, identical class-max semantics (CPU/tests)
-        comp3 = comp[: (C + 1) * cap].reshape(C + 1, cap, dpc)
-        qpad = jnp.zeros((G, T, dpc), jnp.float32)
-        qpad = qpad.at[:, :, :dq].set(q_s.reshape(G, T, -1))
-        blk = comp3[cols].astype(jnp.bfloat16)  # (G, P, cap, dpc)
-        aux_b = aux_r[cols]  # (G, P, 2*members, cls)
-        dots = jnp.einsum(
-            "gtd,gcd->gtc",
-            qpad.astype(jnp.bfloat16),
-            blk.reshape(G, P * cap, dpc),
-            preferred_element_type=jnp.float32,
-        ).reshape(G, T, P, members, cls)
-        nrm_b = aux_b[:, :, :members].reshape(G, 1, P, members, cls)
-        scl_b = aux_b[:, :, members:].reshape(G, 1, P, members, cls)
-        sc = (dots * scl_b + nrm_b).reshape(G, T, P * members, cls)
-        best = jnp.max(sc, axis=2).reshape(B, cls)
-        code = jnp.argmax(sc, axis=2).astype(jnp.int32)  # first max wins
-        lane = jnp.arange(cls, dtype=jnp.int32)
-        code = (code * cls + lane[None, None, :]).reshape(B, cls)
+    comp3 = comp[: (C + 1) * cap].reshape(C + 1, cap, dpc)
+    qpad = jnp.zeros((G, T, dpc), jnp.float32)
+    qpad = qpad.at[:, :, :dq].set(q_s.reshape(G, T, -1))
+    blk = comp3[cols].astype(jnp.bfloat16)  # (G, P, cap, dpc)
+    aux_b = aux_r[cols]  # (G, P, 2*members, cls)
+    dots = jnp.einsum(
+        "gtd,gcd->gtc",
+        qpad.astype(jnp.bfloat16),
+        blk.reshape(G, P * cap, dpc),
+        preferred_element_type=jnp.float32,
+    ).reshape(G, T, P, members, cls)
+    nrm_b = aux_b[:, :, :members].reshape(G, 1, P, members, cls)
+    scl_b = aux_b[:, :, members:].reshape(G, 1, P, members, cls)
+    sc = (dots * scl_b + nrm_b).reshape(G, T, P * members, cls)
+    best = jnp.max(sc, axis=2).reshape(B, cls)
+    code = jnp.argmax(sc, axis=2).astype(jnp.int32)  # first max wins
+    lane = jnp.arange(cls, dtype=jnp.int32)
+    code = (code * cls + lane[None, None, :]).reshape(B, cls)
 
     # per-query top-kk survivors from the class lanes -> global ids
     bestk, sel = jax.lax.top_k(best, kk)  # scores maximize
@@ -443,12 +421,11 @@ def scan_select(comp, aux_r, gid, q_s, cols, *, C: int, T: int, cap: int,
     jax.jit,
     static_argnames=(
         "k", "p", "P", "T", "kk", "metric", "C", "cap", "cls", "batch",
-        "engine",
     ),
 )
 def routed_split_search_at(
     cents, comp, aux_r, gid, base_dev, sqnorms, rs_key, rs_cents, q_dev, lo,
-    *, k, p, P, T, kk, metric, C, cap, cls, batch, engine,
+    *, k, p, P, T, kk, metric, C, cap, cls, batch,
 ):
     """One fused routed dispatch on the clustered split tables: stage-1
     probe selection, on-device affinity sort, sort-based rank-major tile
@@ -485,7 +462,6 @@ def routed_split_search_at(
     )
     cand = scan_select(
         comp, aux_r, gid, q_s, cols, C=C, T=T, cap=cap, cls=cls, kk=kk,
-        engine=engine,
     )
 
     if rs_key is not None:
@@ -564,8 +540,8 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, shards,
     slack 1.05): 31% of ground-truth rows overflowed both choices and
     fell to the round-robin open-slot fallback — i.e. into effectively
     RANDOM clusters (median centroid rank ~5k of 10752), capping
-    routed recall at 0.82 no matter how many clusters are probed
-    (docs/TPU_NOTES.md "Routed spill"). With R choices a spilled row
+    routed recall at 0.82 no matter how many clusters are probed.
+    With R choices a spilled row
     still lands within its R nearest clusters — reachable by any
     p >= R probe setting.
 
@@ -606,7 +582,7 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, shards,
     # capacity-aware refinement: without it, Lloyd cells in dense
     # regions hold >> cap rows and ingest cascades their overflow to
     # far clusters no probe list reaches (the 41.9M 0.82 routing
-    # ceiling, docs/TPU_NOTES.md "Routed spill")
+    # ceiling)
     cents = _lloyd_balance_refine(
         x_train, cents, k=C, rounds=3, R=assign_r, chunk=lchunk
     )
@@ -651,8 +627,7 @@ def _plan_routed(n, dim, *, rowfn, cap_target, cls, cap_slack, shards,
     # Residue rows (all R choices full) are re-chosen among clusters
     # that still have ROOM — a device-masked nearest-open pass — so
     # even cascading dense-region overflow stays near-nearest instead
-    # of round-robin-random (the measured 41.9M recall ceiling,
-    # docs/TPU_NOTES.md "Routed spill").
+    # of round-robin-random (the measured 41.9M recall ceiling).
     assign = _capacity_assign_host(choice, choice_d, C, cap,
                                    defer_residue=True)
     un = np.where(assign < 0)[0]
@@ -757,8 +732,8 @@ def build_routed_split(
     """Build the clustered split tables WITHOUT a resident f32 base.
 
     The cluster capacity is the DMA/select block: cap = cap_target
-    rounded to a multiple of 4*cls (Mosaic sublane tiling of the
-    (2*members, cls) aux block), and C = ~slack*n/cap clusters follow.
+    rounded to a multiple of 4*cls (whole class rows per cluster block),
+    and C = ~slack*n/cap clusters follow.
     One extra PAD cluster (id C, nrm=NEG, gid=-1) absorbs ungranted
     column slots so the kernel needs no mask. Stages (each streams over
     regenerated row chunks):
@@ -772,12 +747,15 @@ def build_routed_split(
       D. stream the PERMUTED id order through the split packer
          (pack_split_device). Exact f32 ground truth for `queries` is
          folded in a SEPARATE pre-ingest pass (fold_gt_stream) so its
-         transients never share HBM with the packed tables.
+         transients never share device memory with the packed tables.
 
     Returns RoutedSplitIndex, or (RoutedSplitIndex, gt) when `queries`
     is given."""
-    from shine_tpu.ops.pallas_scan_routed import aux_routed_layout_chunk
-    from shine_tpu.ops.pallas_scan_split import comp_width, pack_split_device
+    from shine_tpu.ops.packing import (
+        aux_routed_layout_chunk,
+        comp_width,
+        pack_split_device,
+    )
 
     metric = metric_id(metric)
     say = log if log is not None else (lambda *_: None)

@@ -7,7 +7,7 @@
 // (hnsw.hh:482-522), and bidirectional connection with shrink-if-full
 // (hnsw.hh:180-225). Where the reference synchronizes through one-sided RDMA
 // CAS spinlocks across the network, this builder uses in-process per-vertex
-// mutexes — its output feeds the TPU search/runtime as structure-of-arrays
+// mutexes — its output feeds the device search/runtime as structure-of-arrays
 // adjacency, and it also serves as the semantic oracle for the on-device
 // batched construction path.
 //
@@ -410,7 +410,7 @@ int shine_hnsw_build(const float* vecs, int64_t n, int d, int M, int efc,
 }
 
 // Host-side reference k-NN search over the built graph (no locks), used as
-// the semantic oracle for the TPU batched search (reference knn,
+// the semantic oracle for the batched device search (reference knn,
 // hnsw.hh:253-307). results must hold nq*k int32; dists nq*k float.
 void shine_hnsw_search(const float* vecs, int64_t n, int d, int M, int metric,
                        const int32_t* levels, const int32_t* neighbors0,

@@ -1,7 +1,7 @@
 """Fixed-width beam (sorted candidate/result set) for batched best-first
 search.
 
-TPU-native replacement for the reference's MaxHeap/MinHeap pair *and* its
+Batched replacement for the reference's MaxHeap/MinHeap pair *and* its
 per-coroutine visited hashset (/root/reference/src/hnsw/heap.hh,
 coroutine.hh:60): each query's working set is a sorted (dist, id, expanded)
 triple of fixed width ef. The visited set is redundant here because the
@@ -117,7 +117,7 @@ def beam_frontier_multi(
     entries are simply the first `width` unexpanded slots left-to-right —
     a cumsum, no extra sort. Expanding several frontier nodes per step
     trades strict best-first order for ~width x fewer sequential steps
-    (the TPU analogue of the reference's multi-coroutine latency hiding,
+    (the analogue of the reference's multi-coroutine latency hiding,
     scheduler.hh:42-96).
 
     Returns (slots (B, width), frontier_ids (B, width), active (B, width)).

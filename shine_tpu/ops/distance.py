@@ -1,9 +1,9 @@
 """Distance computations.
 
-TPU-native replacement for the reference's AVX2 kernels
+Replacement for the reference's AVX2 kernels
 (/root/reference/src/hnsw/distance.hh:11-76): instead of 16-lane SIMD strips
 over one (query, point) pair at a time, distances are computed for whole
-tiles of queries × candidates as matmuls on the MXU using the
+tiles of queries × candidates as matmuls using the
 ``||a-b||^2 = ||a||^2 - 2<a,b> + ||b||^2`` expansion, and inner-product
 distance as ``1 - <a,b>`` (reference distance.hh:139). L2 is squared, like
 the reference (distance.hh:80-118).
@@ -16,24 +16,38 @@ import jax.numpy as jnp
 
 from shine_tpu.config import METRIC_IP, METRIC_L2
 
-# Distances drive ranking decisions; JAX's DEFAULT matmul precision is
-# bf16-grade on TPU, which shifts recall. HIGHEST keeps f32 accumulation
-# (the workload is gather-bandwidth-bound, so the MXU rate loss is free).
+# Distances drive ranking decisions; JAX's DEFAULT matmul precision may
+# run f32 operands at bf16 or TF32 grade, which shifts recall. HIGHEST
+# keeps full f32 (never TF32) for every ranking product.
 DIST_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def squared_norms(x: jnp.ndarray) -> jnp.ndarray:
     """Exact f32 squared norms via an explicit HIGHEST-precision
     self-contraction. `jnp.sum(x * x)` is algebraically identical, but
-    XLA:TPU may rewrite a reduce-of-multiply as an MXU self-dot at
-    DEFAULT precision (bf16-truncated f32 operands) — the silent-
-    downcast class behind the r4 device-GT corruption (TPU_NOTES "ROOT
-    CAUSE"). Every norm that participates in a RANKING across rows must
+    XLA may rewrite a reduce-of-multiply as a self-dot at DEFAULT
+    precision (reduced-precision f32 operands) — a silent downcast that
+    once corrupted device ground truth. Every norm that participates in
+    a RANKING across rows must
     ride this helper; per-query norms are rank-invariant offsets and
     may use plain sums."""
     x = x.astype(jnp.float32)
     return jnp.einsum(
         "...d,...d->...", x, x,
+        precision=DIST_PRECISION, preferred_element_type=jnp.float32,
+    )
+
+
+def l2_rows(q: jnp.ndarray, rows: jnp.ndarray) -> jnp.ndarray:
+    """Squared L2 between q (..., d) and its gathered rows (..., K, d) as
+    a sum of squared differences. Unlike |q|^2 - 2<q,v> + |v|^2 it has no
+    cancellation (which costs ~1e-5 relative at d=128), so two code paths
+    that gather the same rows — single-device and sharded traversal —
+    agree to the last bits and rank near-ties alike. The square is an
+    explicit HIGHEST contraction, like squared_norms."""
+    diff = rows.astype(jnp.float32) - q.astype(jnp.float32)[..., None, :]
+    return jnp.einsum(
+        "...kd,...kd->...k", diff, diff,
         precision=DIST_PRECISION, preferred_element_type=jnp.float32,
     )
 
@@ -45,7 +59,7 @@ def pairwise_distance(
     *,
     points_sqnorm: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
-    """Full (B, N) distance tile — one big MXU matmul."""
+    """Full (B, N) distance tile — one big matmul."""
     q = queries.astype(jnp.float32)
     p = points.astype(jnp.float32)
     dots = jax.lax.dot_general(
@@ -72,7 +86,7 @@ def rerank_topk(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Exact f32 re-ranking of K candidates down to k.
 
-    The recall-recovery step after a bf16 MXU scan: bf16 rounding can
+    The recall-recovery step after a bf16 scan: bf16 rounding can
     reorder near-ties, so scans over-retrieve K = O(4k) and this picks the
     true top-k at full precision. Returns (dists (..., k), ids (..., k))
     sorted ascending with the (dist, id) tie-break (reference
@@ -105,13 +119,13 @@ def rerank_topk_ext(
     metric: int = METRIC_L2,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Re-rank straight from the packed bf16 score table — the capacity
-    mode where the f32 base is NOT HBM-resident (ext rows hold
-    [2v | -||v||^2] for L2, [v] for IP; pallas_scan.pack_ext_table).
+    mode where the f32 base is NOT device-resident (ext rows hold
+    [2v | -||v||^2] for L2, [v] for IP; ops/packing.py).
     distance = ||q||^2 - score (L2) or 1 - score (IP). Precision is the
     bf16 row storage (~0.4% relative) — same noise class as the scan
     itself, so ordering among true near-ties is approximate; use
     rerank_topk when the f32 base is available."""
-    from shine_tpu.ops.pallas_scan import pack_ext_query
+    from shine_tpu.ops.packing import pack_ext_query
 
     q = queries.astype(jnp.float32)
     qe = pack_ext_query(q.reshape(-1, q.shape[-1]), ext.shape[1])
@@ -143,7 +157,7 @@ def rerank_topk_split(
     k: int,
     metric: int = METRIC_L2,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Re-rank from the split-layout tables (ops/pallas_scan_split.py)
+    """Re-rank from the split-layout tables (ops/packing.py)
     when no f32 base is resident: distance = ||q||^2 - score with
     score = scl[id] * <q, comp[id]> + nrm[id]. Precision is the component
     storage (bf16 ~0.4%, int8 per-row ~s/127); use regen_rerank_topk for
@@ -201,9 +215,8 @@ def prerank_trim_ext(
     """Stage-1 candidate trim: score the kb survivors straight from the
     HBM-resident bf16 scan table and keep only the best `pre` before the
     expensive exact re-rank (f32 row gather or PRNG regen). The gather +
-    re-rank tail is ~2.4x the scan cost in the fused small-N dispatch
-    (docs/TPU_NOTES.md 'Dispatch stage profile'); shrinking K -> pre
-    shrinks both terms. Precision of the trim is the bf16 row storage —
+    re-rank tail can cost more than the scan in a small-N dispatch;
+    shrinking K -> pre shrinks both terms. Precision of the trim is the bf16 row storage —
     the same noise class as the scan that picked the candidates, so a
     pre >= ~1.5k margin keeps the exact stage's recall. Ties break
     (score, id) ascending like every other stage."""
@@ -258,7 +271,7 @@ def candidate_distance(
     """Per-query candidate distances (B, K).
 
     This is the hot op of graph traversal: each query has its own K gathered
-    neighbor vectors (the TPU analogue of the per-neighbor RDMA READ + AVX
+    neighbor vectors (the analogue of the per-neighbor RDMA READ + AVX
     distance in the reference's search_level, hnsw.hh:440-467). Batched
     matvec over B; HBM gather bandwidth, not FLOPs, is the bottleneck.
     """

@@ -1,6 +1,6 @@
 """Batched open-addressing visited set.
 
-TPU-native replacement for the per-coroutine ``visited_nodes`` hashset of the
+Batched replacement for the per-coroutine ``visited_nodes`` hashset of the
 reference (/root/reference/src/coroutine.hh:60, hnsw.hh:408): each of the B
 in-flight queries owns a fixed-size, power-of-two hash table of int32 ids in
 HBM with linear probing, and membership-check + insert for K candidate ids

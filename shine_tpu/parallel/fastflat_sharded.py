@@ -1,14 +1,11 @@
-"""Multi-chip FastFlat: the class-max scan kernel over a row-sharded base.
+"""Multi-device FastFlat: the class-max scan over a row-sharded base.
 
-Each chip holds a row-range of the packed score table (capacity scales with
-chips), runs the fused class-max sweep (ops/pallas_scan3.py) over its own
-rows, selects its local top-kb candidates, re-ranks them *exactly* in f32
-against its own rows (owners hold the vectors), and one `all_gather` of
-(B, kb) (dist, id) lanes merges the shards — the same tiny merge as
-flat_sharded.py with the v3 kernel underneath.
-
-On the virtual CPU mesh the kernel runs in interpret mode automatically
-(pallas TPU lowering needs the real chip).
+Each device holds a row range of the packed score table (capacity scales
+with devices), runs the class-max scan (ops/classmax.py) over its own
+rows, selects its local top-kb candidates, re-ranks them *exactly* in
+f32 against its own rows (owners hold the vectors), and one `all_gather`
+of (B, kb) (dist, id) lanes merges the shards — the same tiny merge as
+flat_sharded.py with the class-max scan underneath.
 """
 
 from __future__ import annotations
@@ -20,56 +17,30 @@ from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
 from shine_tpu.config import METRIC_L2, metric_id
+from shine_tpu.ops.classmax import (
+    classmax_scan,
+    classmax_split,
+    select_candidates,
+)
 from shine_tpu.ops.distance import rerank_topk
-from shine_tpu.ops.pallas_scan import pack_ext_query, pack_ext_table
-from shine_tpu.ops.pallas_scan3 import classmax_scan
+from shine_tpu.ops.packing import (
+    SPLIT_QUANTUM,
+    pack_ext_query,
+    pack_ext_table,
+    pack_split_query,
+    pack_split_tables,
+)
 from shine_tpu.parallel.mesh import SHARD_AXIS
 
 
-def _local_scan(ext, q_ext, B, kb, tq, tn, cls, interpret, keep2,
-                fused_sel=False):
-    """Per-shard fused class-max sweep -> (local candidate rows, their
-    stage-1 scores, kb_eff). The scores feed the FREE prerank trim
+def _local_scan(ext, q, kb, cls, keep2):
+    """Per-shard class-max scan -> (local candidate rows, their stage-1
+    scores, K). The scores feed the FREE prerank trim
     (ops/distance.py:score_trim) — no table re-read."""
-    kb_eff = min(kb, cls)
-    if keep2:
-        # per-class runner-up (ops/pallas_scan3.py v4): recovers bf16
-        # near-tie losses at large rows-per-class
-        if fused_sel and not interpret:
-            from shine_tpu.ops.pallas_scan3 import classmax2_topk_scan
-
-            v1, c1, v2, c2 = classmax2_topk_scan(
-                ext, q_ext, kb=kb_eff, tq=min(tq, B), tn=tn, cls=cls,
-            )
-        else:
-            from shine_tpu.ops.pallas_scan3 import classmax2_scan
-
-            m, r, m2, r2 = classmax2_scan(
-                ext, q_ext, tq=min(tq, B), tn=tn, cls=cls,
-                interpret=interpret,
-            )
-            v1, sel = jax.lax.top_k(m, kb_eff)
-            c1 = jnp.take_along_axis(r, sel, axis=1)
-            c2 = jnp.take_along_axis(r2, sel, axis=1)
-            v2 = jnp.take_along_axis(m2, sel, axis=1)
-        return (
-            jnp.concatenate([c1, jnp.where(v2 > -3e38, c2, -1)], axis=1),
-            jnp.concatenate([v1, v2], axis=1),
-            kb_eff,
-        )
-    if fused_sel and not interpret:
-        # v5 fused in-kernel top-kb (bit-identical, tests/test_pallas.py)
-        from shine_tpu.ops.pallas_scan3 import classmax_topk_scan
-
-        vals, rows = classmax_topk_scan(
-            ext, q_ext, kb=kb_eff, tq=min(tq, B), tn=tn, cls=cls,
-        )
-        return rows, vals, kb_eff
-    m, r = classmax_scan(
-        ext, q_ext, tq=min(tq, B), tn=tn, cls=cls, interpret=interpret,
-    )
-    vals, sel = jax.lax.top_k(m, kb_eff)
-    return jnp.take_along_axis(r, sel, axis=1), vals, kb_eff  # local rows
+    q_ext = pack_ext_query(q, ext.shape[1]).astype(jnp.bfloat16)
+    out = classmax_scan(ext, q_ext, cls=cls, keep2=keep2)
+    cand, vals = select_candidates(out, kb, keep2)
+    return cand, vals, min(kb, cls)
 
 
 def _merge_shards(dd, gi, k):
@@ -86,17 +57,13 @@ def _merge_shards(dd, gi, k):
 
 
 def _make_search(
-    mesh: Mesh, k: int, kb: int, tq: int, cls: int, tn: int, metric: int,
-    rows_per_shard: int, interpret: bool, keep2: bool = False,
-    prerank: int = 0, fused_sel: bool = False,
+    mesh: Mesh, k: int, kb: int, cls: int, metric: int,
+    rows_per_shard: int, keep2: bool = False,
+    prerank: int = 0,
 ):
     def spmd(ext, vectors, sqnorms, queries):
-        B = queries.shape[0]
         q = queries.astype(jnp.float32)
-        q_ext = pack_ext_query(q, ext.shape[1]).astype(jnp.bfloat16)
-        cand_local, vals, kb_eff = _local_scan(
-            ext, q_ext, B, kb, tq, tn, cls, interpret, keep2, fused_sel
-        )
+        cand_local, vals, kb_eff = _local_scan(ext, q, kb, cls, keep2)
         cand_local = jnp.where(cand_local < vectors.shape[0], cand_local, -1)
         if prerank and k <= prerank < cand_local.shape[1]:
             # FREE stage-1 trim from the scan's own scores: shrinks BOTH
@@ -127,9 +94,9 @@ def _make_search(
 
 
 def _make_search_ext(
-    mesh: Mesh, k: int, kb: int, tq: int, cls: int, tn: int, metric: int,
-    rows_per_shard: int, interpret: bool, keep2: bool = False,
-    with_regen: bool = False, prerank: int = 0, fused_sel: bool = False,
+    mesh: Mesh, k: int, kb: int, cls: int, metric: int,
+    rows_per_shard: int, keep2: bool = False,
+    with_regen: bool = False, prerank: int = 0,
 ):
     """Capacity-mode SPMD search: each shard holds ONLY its slice of the
     packed bf16 ext table (no f32 base anywhere — per-chip capacity is
@@ -139,16 +106,12 @@ def _make_search_ext(
     (ops/distance.py:regen_rerank_topk). This is the configuration that
     scales to the reference's 100M-row envelope
     (/root/reference/src/memory_node.hh:112-125 — 44 GB/MN x 5 MN; here
-    512 B/row x 100M over 8 chips = 6.4 GB/chip)."""
+    320 B/row at d=128, 100M rows over 4 devices = 8 GB each)."""
     from shine_tpu.ops.distance import regen_rerank_topk, rerank_topk_ext
 
     def spmd(ext, queries, *rs):
-        B = queries.shape[0]
         q = queries.astype(jnp.float32)
-        q_ext = pack_ext_query(q, ext.shape[1]).astype(jnp.bfloat16)
-        cand_local, vals, kb_eff = _local_scan(
-            ext, q_ext, B, kb, tq, tn, cls, interpret, keep2, fused_sel
-        )
+        cand_local, vals, kb_eff = _local_scan(ext, q, kb, cls, keep2)
         cand_local = jnp.where(cand_local < ext.shape[0], cand_local, -1)
         my = jax.lax.axis_index(SHARD_AXIS)
         if with_regen:
@@ -185,82 +148,27 @@ def _make_search_ext(
     return run
 
 
-def _local_scan_split(comp, aux, q_pad, B, kb, tq, cls, interpret, keep2,
-                      fused_sel=False):
-    """Per-shard split-layout class-max sweep -> local candidate rows
-    (ops/pallas_scan_split.py; tn follows the 8*cls Mosaic rule)."""
-    from shine_tpu.ops.pallas_scan_split import classmax_scan_split
-
-    n_loc = comp.shape[0]
-    if interpret:
-        tn = min(max(1024, cls), n_loc)
-    else:
-        tn = 8 * cls
-        if tn < 16384 and n_loc % (2 * tn) == 0:
-            tn *= 2
-    kb_eff = min(kb, cls)
-    if fused_sel and not interpret:
-        # v5 fused in-kernel top-kb (bit-identical, tests/test_split.py)
-        from shine_tpu.ops.pallas_scan_split import classmax_topk_scan_split
-
-        # tq capped at 256: the fused split kernel's scoped-VMEM bill
-        # (sweep state + DMA buffers + epilogue temps) exceeds the cap
-        # at tq=512 x cls=2048 (models/flat.py, r3f measurement)
-        out = classmax_topk_scan_split(
-            comp, aux, q_pad, kb=kb_eff, tq=min(tq, B, 256), tn=tn,
-            cls=cls, keep2=keep2,
-        )
-        if keep2:
-            v1, c1, v2, c2 = out
-            return (
-                jnp.concatenate(
-                    [c1, jnp.where(v2 > -3e38, c2, -1)], axis=1
-                ),
-                jnp.concatenate([v1, v2], axis=1),
-                kb_eff,
-            )
-        return out[1], out[0], kb_eff
-    out = classmax_scan_split(
-        comp, aux, q_pad, tq=min(tq, B), tn=tn, cls=cls, keep2=keep2,
-        interpret=interpret,
-    )
-    if keep2:
-        m, r, m2, r2 = out
-        v1, sel = jax.lax.top_k(m, kb_eff)
-        c1 = jnp.take_along_axis(r, sel, axis=1)
-        c2 = jnp.take_along_axis(r2, sel, axis=1)
-        v2 = jnp.take_along_axis(m2, sel, axis=1)
-        return (
-            jnp.concatenate([c1, jnp.where(v2 > -3e38, c2, -1)], axis=1),
-            jnp.concatenate([v1, v2], axis=1),
-            kb_eff,
-        )
-    m, r = out
-    vals, sel = jax.lax.top_k(m, kb_eff)
-    return jnp.take_along_axis(r, sel, axis=1), vals, kb_eff
-
-
 def _make_search_split(
-    mesh: Mesh, k: int, kb: int, tq: int, cls: int, metric: int,
-    rows_per_shard: int, interpret: bool, keep2: bool = False,
-    with_regen: bool = False, prerank: int = 0, fused_sel: bool = False,
+    mesh: Mesh, k: int, kb: int, cls: int, metric: int,
+    rows_per_shard: int, keep2: bool = False,
+    with_regen: bool = False, prerank: int = 0,
 ):
     """Capacity-mode SPMD search on the SPLIT layout: each shard holds
     its slice of the component table (bf16: 264 B/row, int8: 136 B/row
-    at d=128) + the f32 aux pair — per-chip capacity 2-3.8x the packed
-    ext layout, so an 8-chip slice reaches 500M-1B rows (the reference's
-    whole-cluster envelope is 100M, memory_node.hh:112-125). Re-rank is
-    split-table dequant or EXACT f32 regen via row_source."""
+    at d=128) + the f32 aux pair — per-device capacity 2.4-4.7x the packed
+    ext layout (the reference's whole-cluster envelope is 100M,
+    memory_node.hh:112-125). Re-rank is split-table dequant or EXACT f32
+    regen via row_source."""
     from shine_tpu.ops.distance import regen_rerank_topk, rerank_topk_split
-    from shine_tpu.ops.pallas_scan_split import pack_split_query
 
     def spmd(comp, aux, queries, *rs):
-        B = queries.shape[0]
         q = queries.astype(jnp.float32)
-        q_pad = pack_split_query(q, comp.shape[1])
-        cand_local, vals, kb_eff = _local_scan_split(
-            comp, aux, q_pad, B, kb, tq, cls, interpret, keep2, fused_sel
+        out = classmax_split(
+            comp, aux, pack_split_query(q, comp.shape[1]), cls=cls,
+            keep2=keep2,
         )
+        cand_local, vals = select_candidates(out, kb, keep2)
+        kb_eff = min(kb, cls)
         cand_local = jnp.where(cand_local < comp.shape[0], cand_local, -1)
         my = jax.lax.axis_index(SHARD_AXIS)
         if with_regen:
@@ -311,10 +219,7 @@ class ShardedSplitFlatIndex:
         *,
         dim: int | None = None,
         row_source=None,
-        interpret: bool | None = None,
     ):
-        from shine_tpu.ops.pallas_scan_split import SPLIT_QUANTUM
-
         self.metric = metric_id(metric)
         self.mesh = mesh
         S = mesh.devices.size
@@ -328,9 +233,6 @@ class ShardedSplitFlatIndex:
         self.n = n
         self.dim = dim if dim is not None else dpc
         self.rows = n_pad // S
-        if interpret is None:
-            interpret = jax.default_backend() == "cpu"
-        self.interpret = interpret
         self.row_source = row_source
         self.perm = None  # from_host shuffle map: packed id -> original
         self._runs: dict = {}
@@ -353,11 +255,6 @@ class ShardedSplitFlatIndex:
         it); search output maps packed ids back through the stored perm.
         Re-rank runs from the split tables (near-exact); attach a
         row_source afterwards for the exact-regen path."""
-        from shine_tpu.ops.pallas_scan_split import (
-            SPLIT_QUANTUM,
-            pack_split_tables,
-        )
-
         v = np.ascontiguousarray(vectors, dtype=np.float32)
         n, d = v.shape
         perm = None
@@ -395,34 +292,25 @@ class ShardedSplitFlatIndex:
         *,
         kb: int = 32,
         batch_size: int = 4096,
-        tq: int = 512,
         cls: int = 0,
         keep2: bool | None = None,
         prerank: int = 0,
-        fused_sel: bool | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        from shine_tpu.models.flat import keep2_auto
+        from shine_tpu.models.flat import cls_auto, keep2_auto
 
         if cls <= 0:
-            cls = 1024 if keep2_auto(self.rows, 2048) else 2048
+            cls = cls_auto(self.rows)
         if keep2 is None:
             keep2 = keep2_auto(self.rows, cls)
         kb = max(kb, k)
-        if fused_sel is None:
-            # the FastFlatIndex.search measured rule (r3f ablation);
-            # keep2 fusion capped at kb<=32 (Mosaic register-spill OOM
-            # at kb=81/dp=256, chip_plan_r4a stage C)
-            fused_sel = (keep2 and kb <= 32) or kb <= 16
         nq, d = queries.shape
         batch_size = min(batch_size, max(nq, 1))
-        batch_size = max(tq, -(-batch_size // tq) * tq)
-        key = (k, kb, tq, cls, batch_size, keep2, prerank, fused_sel)
+        key = (k, kb, cls, batch_size, keep2, prerank)
         if key not in self._runs:
             self._runs[key] = _make_search_split(
-                self.mesh, k, kb, tq, cls, self.metric, self.rows,
-                self.interpret, keep2=keep2,
-                with_regen=self.row_source is not None, prerank=prerank,
-                fused_sel=fused_sel,
+                self.mesh, k, kb, cls, self.metric, self.rows,
+                keep2=keep2, with_regen=self.row_source is not None,
+                prerank=prerank,
             )
         run = self._runs[key]
         rep = NamedSharding(self.mesh, P())
@@ -464,7 +352,7 @@ class ShardedSplitFlatIndex:
 
 
 class ShardedFastFlatIndex:
-    """Row-sharded exact-ish k-NN with the fused class-max kernel."""
+    """Row-sharded exact-ish k-NN with the class-max scan."""
 
     def __init__(
         self,
@@ -472,10 +360,8 @@ class ShardedFastFlatIndex:
         mesh: Mesh,
         metric: str | int = "l2",
         *,
-        tn: int = 1024,
         shuffle: bool = True,
         seed: int = 0,
-        interpret: bool | None = None,
     ):
         self.metric = metric_id(metric)
         self.mesh = mesh
@@ -500,11 +386,8 @@ class ShardedFastFlatIndex:
         self.ext = jax.device_put(jnp.asarray(ext, jnp.bfloat16), row_sh)
         self.vectors = jax.device_put(jnp.asarray(vpad), row_sh)
         self.sqnorms = jax.device_put(jnp.asarray(sq.astype(np.float32)), row_sh)
-        self.n, self.dim, self.tn = n, d, tn
+        self.n, self.dim = n, d
         self.rows = n_pad // S
-        if interpret is None:
-            interpret = jax.default_backend() == "cpu"
-        self.interpret = interpret
         self.row_source = None
         self._runs: dict = {}
 
@@ -518,15 +401,12 @@ class ShardedFastFlatIndex:
         *,
         dim: int | None = None,
         row_source=None,
-        tn: int = 1024,
-        interpret: bool | None = None,
     ) -> "ShardedFastFlatIndex":
         """Sharded CAPACITY mode: row-shard the packed bf16 score table
-        over the mesh with NO per-shard f32 base — per-chip rows are
-        limited by the 2-byte ext row alone (~2x the exact-rerank
-        layout; d=128 -> 512 B/row -> ~25M rows per 16 GB chip, so an
-        8-chip v5e slice holds a 100-200M-row table, the reference's
-        serving envelope, memory_node.hh:112-125). Re-rank per shard is
+        over the mesh with NO per-shard f32 base — per-device rows are
+        limited by the 2-byte ext row alone (d=128 -> 320 B/row, so four
+        devices hold a 100M-row table, the reference's serving envelope,
+        memory_node.hh:112-125). Re-rank per shard is
         bf16 ext rows, or EXACT f32 via row_source=(key, centers)
         regeneration (io/device_synth.py row-keyed datasets). Pair with
         device_rowkeyed_ext_dataset(mesh=...) for sharded streaming
@@ -544,11 +424,8 @@ class ShardedFastFlatIndex:
         self.perm = None
         if dim is None:
             dim = dp - 2 if self.metric == METRIC_L2 else dp
-        self.n, self.dim, self.tn = n, dim, tn
+        self.n, self.dim = n, dim
         self.rows = n_pad // S
-        if interpret is None:
-            interpret = jax.default_backend() == "cpu"
-        self.interpret = interpret
         self.row_source = row_source
         self._runs = {}
         return self
@@ -560,48 +437,38 @@ class ShardedFastFlatIndex:
         *,
         kb: int = 0,
         batch_size: int = 4096,
-        tq: int = 512,
         cls: int = 0,
         keep2: bool | None = None,
         prerank: int = 0,
-        fused_sel: bool | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        from shine_tpu.models.flat import kb_auto, keep2_auto
+        from shine_tpu.models.flat import cls_auto, kb_auto, keep2_auto
 
         if kb <= 0:
             # per-shard row count: the scan (and its kb candidate margin)
             # is shard-local; the r4f kb rule applies at the shard scale
             kb = kb_auto(self.rows, self.dim)
         if cls <= 0:
-            # same measured auto-cls rule as FastFlatIndex.search, on the
+            # same auto-cls rule as FastFlatIndex.search, on the
             # per-shard row count (the scan is shard-local)
-            cls = 1024 if keep2_auto(self.rows, 2048) else 2048
+            cls = cls_auto(self.rows)
         if keep2 is None:
             keep2 = keep2_auto(self.rows, cls)
         kb = max(kb, k)
-        if fused_sel is None:
-            # the FastFlatIndex.search measured rule (r3f ablation);
-            # keep2 fusion capped at kb<=32 (Mosaic register-spill OOM
-            # at kb=81/dp=256, chip_plan_r4a stage C)
-            fused_sel = (keep2 and kb <= 32) or kb <= 16
         nq, d = queries.shape
         batch_size = min(batch_size, max(nq, 1))
-        batch_size = max(tq, -(-batch_size // tq) * tq)
         capacity = self.vectors is None
-        key = (k, kb, tq, cls, batch_size, keep2, prerank, fused_sel)
+        key = (k, kb, cls, batch_size, keep2, prerank)
         if key not in self._runs:
             if capacity:
                 self._runs[key] = _make_search_ext(
-                    self.mesh, k, kb, tq, cls, max(self.tn, cls),
-                    self.metric, self.rows, self.interpret, keep2=keep2,
-                    with_regen=self.row_source is not None,
-                    prerank=prerank, fused_sel=fused_sel,
+                    self.mesh, k, kb, cls, self.metric, self.rows,
+                    keep2=keep2, with_regen=self.row_source is not None,
+                    prerank=prerank,
                 )
             else:
                 self._runs[key] = _make_search(
-                    self.mesh, k, kb, tq, cls, max(self.tn, cls),
-                    self.metric, self.rows, self.interpret, keep2=keep2,
-                    prerank=prerank, fused_sel=fused_sel,
+                    self.mesh, k, kb, cls, self.metric, self.rows,
+                    keep2=keep2, prerank=prerank,
                 )
         run = self._runs[key]
         rep = NamedSharding(self.mesh, P())

@@ -1,12 +1,12 @@
-"""Multi-chip exact k-NN: row-sharded brute force over the mesh.
+"""Multi-device exact k-NN: row-sharded brute force over the mesh.
 
-The simplest and strongest scaling story in the framework: each chip holds
+The simplest and strongest scaling story in the framework: each device holds
 an equal row-range of the base (the MN role, memory capacity scales
 linearly with chips) and scans it for the *whole* replicated query batch
-at MXU rate; per-chip local top-k results are merged with one `all_gather`
-of (B, k) lanes — the only ICI traffic. Compare the reference, where every
+at matmul rate; per-device local top-k results are merged with one
+`all_gather` of (B, k) lanes — the only interconnect traffic. Compare the reference, where every
 added memory node adds RDMA fan-out per query (SURVEY.md §2.11.2); here
-added chips divide the scan time with a fixed, tiny merge cost.
+added devices divide the scan time with a fixed, tiny merge cost.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ class ShardedFlatIndex:
             # host numpy (v*v).sum(-1) rounds differently at the last ulp
             # (~72% of rows at 64k), which flipped (dist, id) ties at the
             # k-cutoff and broke single-vs-sharded fastbuild neighbor
-            # identity at 262k (docs/TPU_NOTES.md round 5)
+            # identity at 262k
             from shine_tpu.models.flat import _row_sq
 
             sq = np.asarray(_row_sq(jnp.asarray(v)))
@@ -143,7 +143,7 @@ class ShardedFlatIndex:
                       use_bf16: bool = True) -> dict:
         """Cluster-total analytic cost (reference sums per-CN counters at
         the initiator, statistics.hh:94-115): HBM work is the same table
-        scan split across shards; ICI moves the replicated queries out and
+        scan split across shards; the interconnect moves the replicated queries out and
         the per-shard (dist, id) top-k lanes back for the merge."""
         S = self.mesh.devices.size
         n_pad = self.rows * S

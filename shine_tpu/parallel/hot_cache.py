@@ -3,12 +3,12 @@
 The reference gives each compute node a DRAM cache of remote vertices with
 optimistic lock-free reads and cooling-table eviction
 (/root/reference/src/cache/cache.hh, cooling_table.hh): hot vertices stop
-costing RDMA READs. The TPU equivalent replicates the hot vertices' rows
-(vector + layer-0 neighborlist) onto every chip so traversal steps touching
-them are served from local HBM instead of the ICI owner-exchange
+costing RDMA READs. The equivalent here replicates the hot vertices' rows
+(vector + layer-0 neighborlist) onto every device so traversal steps
+touching them are served from local memory instead of the owner-exchange
 (parallel/sharded.py).
 
-Design differences, TPU-first:
+Design differences:
   * no per-access eviction machinery on device — the hot set is a static
     snapshot refreshed from access counters between batches (the
     cooling-table FIFO becomes an exponentially-decayed counter ranking,
@@ -32,7 +32,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shine_tpu.config import METRIC_L2
 from shine_tpu.graph.soa import GraphSoA
 
 
@@ -42,7 +41,6 @@ class HotReplica(NamedTuple):
 
     hot_ids: jnp.ndarray  # (H,) i32 sorted, 2^31-1 pad
     hot_vecs: jnp.ndarray  # (H, d) f32 or bf16 (matches shard_graph rows=)
-    hot_sq: jnp.ndarray  # (H,) f32
     hot_neighbors: jnp.ndarray  # (H, 2M) i32
 
     @property
@@ -74,24 +72,18 @@ def build_replica(
 ) -> HotReplica:
     """rows must match the sharded graph's row storage (shard_graph):
     replica hits must serve bit-the-same values the owner exchange would,
-    so bf16 replicas store the ROUNDED rows and norms of the rounded
-    values."""
+    so bf16 replicas store the ROUNDED rows."""
     vecs = graph.vectors[hot_ids].astype(np.float32)
     store = vecs
     if rows == "bf16":
         import ml_dtypes
 
         store = vecs.astype(ml_dtypes.bfloat16)
-        vecs = store.astype(np.float32)
     elif rows != "f32":
         raise ValueError(f"replica rows must be f32|bf16, got {rows!r}")
-    sq = (vecs * vecs).sum(-1)
-    if graph.params.metric_id != METRIC_L2:
-        sq = np.zeros_like(sq)
     return HotReplica(
         hot_ids=jnp.asarray(hot_ids),
         hot_vecs=jnp.asarray(store),
-        hot_sq=jnp.asarray(sq.astype(np.float32)),
         hot_neighbors=jnp.asarray(graph.neighbors0[hot_ids]),
     )
 

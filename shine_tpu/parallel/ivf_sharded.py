@@ -13,7 +13,7 @@ Probe lanes are COMPACTED per shard (r3): each chip packs the (query,
 cluster) wishes it owns into ~p/S lanes per query and scans only those,
 with overflow served in further rounds of the same loop (exact — nothing
 dropped; the _owner_rpc pattern minus the wire: queries and wishes are
-replicated, so compaction is purely local and costs zero extra ICI).
+replicated, so compaction is purely local and costs zero extra interconnect traffic).
 Per-chip scanned lanes drop ~S/slack x vs the old masked full-width scan
 (kept as probe_lanes="dense" for comparison; the reference analogue is
 CNs reading only the rows they need, rdma_reads.hh:101-134).
@@ -516,7 +516,7 @@ class ShardedIVFIndex:
                              rerank: int = 4) -> dict:
         """Analytic routed cost: the plan (stage 1 + sort + unions) is
         replicated on every shard; union blocks are fetched once per tile
-        by their owners; per-shard survivors merge over ICI; exact re-rank
+        by their owners; per-shard survivors merge over the interconnect; exact re-rank
         on the host."""
         S = self.mesh.devices.size
         P = min(shared, self.C)
@@ -536,7 +536,7 @@ class ShardedIVFIndex:
                       batch_size: int = 2048, rerank: int = 4) -> dict:
         """Cluster-total analytic cost: centroid scoring is replicated on
         every shard; probed blocks are scanned by their owning shard; the
-        (B, kk) candidate lanes are merged over ICI; the exact re-rank runs
+        (B, kk) candidate lanes are merged over the interconnect; the exact re-rank runs
         on the host against the id-ordered base."""
         S = self.mesh.devices.size
         p = min(probes, self.C)

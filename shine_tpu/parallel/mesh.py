@@ -1,10 +1,12 @@
 """Device mesh helpers.
 
 The reference's cluster topology is CNs x MNs connected by ibverbs QPs
-(/root/reference/rdma-library/library/connection_manager.cc:25-100). On TPU
-both roles collapse onto one mesh: every chip holds a graph shard (the MN
+(reference rdma-library/library/connection_manager.cc:25-100). Here
+both roles collapse onto one mesh: every device holds a graph shard (the MN
 role) *and* advances a slice of the query batch (the CN role); all remote
-access rides ICI collectives instead of RDMA verbs (SURVEY.md §5.8).
+access rides collectives instead of RDMA verbs (SURVEY.md §5.8). Every
+device reaches every other directly, so the mesh is 1-D and follows the
+algorithm alone.
 """
 
 from __future__ import annotations

@@ -4,10 +4,10 @@ The reference routes each query to the compute node whose cache most likely
 holds the query's region: it BFS-fetches >=500 upper-level vertices, runs
 *balanced* k-means with k = num CNs (deterministic seed so every CN computes
 the identical placement), and keeps a centroid -> CN mapping
-(/root/reference/src/cache/placement.hh:22-106, kmeans.hh). The TPU rebuild
+(reference src/cache/placement.hh:22-106, kmeans.hh). This rebuild
 keeps the same math — farthest-point init, Lloyd iterations, penalty-based
 balancing (the "Balanced k-means revisited" scheme, kmeans.hh:259-377) —
-but vectorized in JAX: one (n, k) distance tile per iteration on the MXU
+but vectorized in JAX: one (n, k) distance matmul per iteration
 instead of per-point scalar loops.
 
 Placement feeds two consumers:
@@ -55,8 +55,8 @@ def _init_centroids(points: jnp.ndarray, k: int, seed: int) -> jnp.ndarray:
 
 @partial(jax.jit, static_argnames=("k", "iters", "seed"))
 def _lloyd(points: jnp.ndarray, *, k: int, iters: int, seed: int):
-    """Plain Lloyd iterations (kmeans.hh:93-137), one (n, k) MXU distance
-    tile per iteration."""
+    """Plain Lloyd iterations (kmeans.hh:93-137), one (n, k) distance
+    matmul per iteration."""
     points = points.astype(jnp.float32)
     cents = _init_centroids(points, k, seed)
 
@@ -77,7 +77,7 @@ def _lloyd(points: jnp.ndarray, *, k: int, iters: int, seed: int):
 def capacity_assign(d: np.ndarray, cap: int) -> np.ndarray:
     """Deterministic capacity-constrained assignment: each point goes to
     its nearest centroid that still has room (<= cap points each), points
-    taken nearest-first per cluster. The TPU rebuild's replacement for the
+    taken nearest-first per cluster. This rebuild's replacement for the
     reference's sequential penalty-based balanced k-means
     (kmeans.hh:259-377) — an O(k^2) sweep of vectorized numpy instead of a
     per-point scalar loop, with a hard balance guarantee."""

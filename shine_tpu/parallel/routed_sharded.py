@@ -142,7 +142,6 @@ class ShardedRoutedSplitIndex:
         tile: int = 0,
         kk: int = 0,
         batch_size: int = 2048,
-        engine: str = "auto",
         fallback: float = 0.5,
     ) -> tuple[np.ndarray, np.ndarray]:
         """SPMD routed search; knobs mirror RoutedSplitIndex.search.
@@ -154,8 +153,6 @@ class ShardedRoutedSplitIndex:
         against it — falls below the threshold re-run SPMD in narrow
         T=16 tiles with a full grant and P_loc = P (no overflow): the
         single-chip spill guarantee, over the mesh, overflow included."""
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
         S = self.S
         from shine_tpu.models.routed_split import _auto_knobs, _auto_probes
 
@@ -185,13 +182,12 @@ class ShardedRoutedSplitIndex:
         r0, r1 = (
             self.row_source if self.row_source is not None else self.base
         )
-        key = (k, probes, shared, shared_local, tile, kk, batch_size,
-               engine)
+        key = (k, probes, shared, shared_local, tile, kk, batch_size)
         if key not in self._runs:
             self._runs[key] = _make_routed_spmd(
                 self.mesh, k, probes, shared, shared_local, tile, kk,
                 self.metric, self.C, self.cap, self.cls, batch_size,
-                engine, rerank=rerank,
+                rerank=rerank,
             )
         run = self._runs[key]
         parts = []
@@ -221,12 +217,12 @@ class ShardedRoutedSplitIndex:
                 Ts, Ps, bucket = _spill_plan(len(need), probes, self.C)
                 qs = np.zeros((bucket, d), np.float32)
                 qs[: len(need)] = queries[need].astype(np.float32)
-                fkey = (k, probes, Ps, Ps, Ts, kk, bucket, engine)
+                fkey = (k, probes, Ps, Ps, Ts, kk, bucket)
                 if fkey not in self._runs:
                     self._runs[fkey] = _make_routed_spmd(
                         self.mesh, k, probes, Ps, Ps, Ts, kk,
                         self.metric, self.C, self.cap, self.cls,
-                        bucket, engine, rerank=rerank,
+                        bucket, rerank=rerank,
                     )
                 fb = self._runs[fkey](
                     self.comp, self.aux_r, self.gid, self.centroids,
@@ -308,8 +304,11 @@ def build_routed_split_sharded(
         _make_rowfn,
         _plan_routed,
     )
-    from shine_tpu.ops.pallas_scan_routed import aux_routed_layout_chunk
-    from shine_tpu.ops.pallas_scan_split import comp_width, pack_split_device
+    from shine_tpu.ops.packing import (
+        aux_routed_layout_chunk,
+        comp_width,
+        pack_split_device,
+    )
 
     S = mesh.devices.size
     metric = metric_id(metric)
@@ -345,7 +344,7 @@ def build_routed_split_sharded(
     # exact GT before the big tables exist, by the SAME streaming pass
     # the single-chip builder uses (fold_gt_stream) — bit-identical GT
     # between the two builders by construction, and the GT transients
-    # never share HBM with the packed tables
+    # never share device memory with the packed tables
     gt_i = None
     if queries is not None:
         from shine_tpu.models.routed_split import fold_gt_stream
@@ -406,7 +405,7 @@ def build_routed_split_sharded(
 
 
 def _make_routed_spmd(mesh, k, p, P, P_loc, T, kk, metric, C, cap, cls,
-                      batch, engine, rerank="regen"):
+                      batch, rerank="regen"):
     from shine_tpu.ops.distance import (
         pairwise_distance,
         regen_rerank_topk,
@@ -467,7 +466,7 @@ def _make_routed_spmd(mesh, k, p, P, P_loc, T, kk, metric, C, cap, cls,
         )
         cand = scan_select(
             comp, aux_r, gid, q_s, lcol_c, C=C_loc, T=T, cap=cap, cls=cls,
-            kk=kk, engine=engine,
+            kk=kk,
         )
         # the whole inter-chip exchange: (S, B, kk) global-id lanes
         allc = jax.lax.all_gather(cand, SHARD_AXIS)

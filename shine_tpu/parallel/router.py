@@ -3,8 +3,8 @@
 The reference's QueryRouter sends each query to the CN whose cached region
 matches it, with per-CN batch budgets and adaptive rebalancing by idleness,
 relayed through MNs because CNs lack direct connections
-(/root/reference/src/router/query_router.hh). On a TPU mesh every chip can
-talk to every chip, so the relay machinery disappears; what remains useful
+(reference src/router/query_router.hh). On a device mesh every
+device can talk to every device, so the relay machinery disappears; what remains useful
 is *batch composition*: ordering the query stream so that
 
   1. each SPMD batch's local slices are affine to the shard that will serve

@@ -1,25 +1,25 @@
-"""Multi-chip sharded HNSW search (SPMD over a 1-D device mesh).
+"""Multi-device sharded HNSW search (SPMD over a 1-D device mesh).
 
 Replaces the reference's disaggregated CN/MN split
-(/root/reference/src/compute_node.cc, src/memory_node.hh): every chip holds
+(reference src/compute_node.cc, src/memory_node.hh): every device holds
 one row-range shard of the layer-0 graph (the MN role) and advances one
 slice of the query batch (the CN role). The reference's one-sided RDMA READ
-of a remote node (src/rdma/rdma_reads.hh:9-38) becomes two ICI collectives
+of a remote node (src/rdma/rdma_reads.hh:9-38) becomes two collectives
 per traversal step:
 
   1. frontier neighborlists: `all_gather` the (tiny, int32) frontier ids,
      the owning shard gathers its `neighbors0` rows, `psum_scatter` routes
-     each row back to the requesting chip;
+     each row back to the requesting device;
   2. candidate distances: the query set is replicated once up front, so the
      *owner* of each candidate row computes the distance locally and only a
-     float per candidate crosses ICI — vectors never move (d x less ICI
-     traffic than shipping rows, the moral equivalent of the reference
-     keeping computation on CNs but data on MNs, inverted for TPU where
-     FLOPs are free and bandwidth is not).
+     float per candidate crosses the interconnect — vectors never move (d x
+     less traffic than shipping rows, the moral equivalent of the reference
+     keeping computation on CNs but data on MNs, inverted here because
+     FLOPs are cheap and interconnect bandwidth is not).
 
-Upper layers are replicated on every chip (they are ~N/(M-1) rows under the
+Upper layers are replicated on every device (they are ~N/(M-1) rows under the
 geometric level draw, hnsw.hh:309-321) so greedy descent
-(hnsw.hh:331-393) runs with zero communication — the TPU analogue of the
+(hnsw.hh:331-393) runs with zero communication — the analogue of the
 reference's hot-vertex cache holding the upper layers (SURVEY.md §7.1).
 
 Global node ids are plain rows; owner shard = id // rows_per_shard,
@@ -46,7 +46,7 @@ from shine_tpu.ops.beam import (
     beam_mark_expanded,
     beam_merge,
 )
-from shine_tpu.ops.distance import DIST_PRECISION, squared_norms
+from shine_tpu.ops.distance import DIST_PRECISION, l2_rows, squared_norms
 from shine_tpu.parallel.mesh import SHARD_AXIS
 
 
@@ -54,7 +54,7 @@ class ShardedGraph(NamedTuple):
     """Device-resident sharded index (a pytree).
 
     Sharded over the mesh (leading dim = global row, row-sharded):
-      vectors (N', d), vec_sqnorms (N',), neighbors0 (N', 2M)
+      vectors (N', d), neighbors0 (N', 2M)
     Replicated upper-layer structure (u-indices are rows of this table):
       upper_ids (U,) global id of each upper node, -1 pad
       upper_vecs (U, d), upper_sqnorms (U,)
@@ -63,7 +63,6 @@ class ShardedGraph(NamedTuple):
     """
 
     vectors: jnp.ndarray
-    vec_sqnorms: jnp.ndarray
     neighbors0: jnp.ndarray
     upper_ids: jnp.ndarray
     upper_vecs: jnp.ndarray
@@ -111,12 +110,12 @@ def shard_graph(
 ) -> ShardedGraph:
     """Pad to the shard grid and place arrays on the mesh.
 
-    rows="bf16" stores the sharded layer-0 rows in bfloat16 (norms
-    precomputed from the ROUNDED values so owned/replica/compact
-    distances agree with the single-chip quantized path,
-    models/hnsw.py:device_graph) — halves per-shard row HBM, which is
-    what fits the 100M-class M=32 graph on an 8-chip slice
-    (docs/TPU_NOTES.md "10M x M=32"). The replicated upper tables stay
+    rows="bf16" stores the sharded layer-0 rows in bfloat16 (rounded
+    like the single-device quantized path, models/hnsw.py:device_graph,
+    so owned/replica/compact distances agree with it) — halves per-shard
+    row bytes, which is
+    what fits the 100M-class M=32 graph on a few devices. The replicated
+    upper tables stay
     f32 (they are ~N/(M-1) rows; descent exactness is free). int8 rows
     are single-chip capacity-only: the per-gather dequant on the
     latency-critical traversal was a measured serving negative (~45%
@@ -131,7 +130,6 @@ def shard_graph(
 
         host_v = host_v.astype(ml_dtypes.bfloat16)
         vectors = _pad_rows(host_v, n_pad, 0.0)
-        host_v = host_v.astype(np.float32)  # rounded values for norms
     elif rows == "f32":
         vectors = _pad_rows(host_v, n_pad, 0.0)
     else:
@@ -139,10 +137,6 @@ def shard_graph(
             f"sharded rows must be f32|bf16, got {rows!r} (int8 is "
             "single-chip capacity-only — see models/hnsw.py)"
         )
-    sq = (host_v ** 2).sum(axis=1)
-    if graph.params.metric_id != METRIC_L2:
-        sq = np.zeros_like(sq)
-    sq = _pad_rows(sq.astype(np.float32), n_pad, np.inf)
     nbrs0 = _pad_rows(graph.neighbors0, n_pad, -1)
 
     upper_ids, adj_u, entry_u = build_upper_tables(graph)
@@ -156,7 +150,6 @@ def shard_graph(
     dev = partial(jax.device_put)
     return ShardedGraph(
         vectors=dev(jnp.asarray(vectors), row_sh),
-        vec_sqnorms=dev(jnp.asarray(sq), row_sh),
         neighbors0=dev(jnp.asarray(nbrs0), row_sh),
         upper_ids=dev(jnp.asarray(upper_ids), rep),
         upper_vecs=dev(jnp.asarray(upper_vecs, dtype=jnp.float32), rep),
@@ -245,12 +238,12 @@ def _owner_rpc(
     """Compact owner-compute RPC over bucketed `all_to_all`.
 
     The dense exchange pattern (all_gather ids -> every shard scans the
-    full id set -> psum_scatter results) moves O(S*L) lanes of ICI per
+    full id set -> psum_scatter results) moves O(S*L) interconnect lanes per
     call. Here each id travels ONCE to its owning shard (id //
     rows_per_shard), the owner computes a (width,)-payload, and the
     payload travels once back: O(L) lanes. Ids in the self-bucket (the
-    all_to_all diagonal) never cross ICI at all, so replica hits and
-    affinity-routed batches directly reduce wire traffic — the TPU
+    all_to_all diagonal) never cross the interconnect at all, so replica
+    hits and affinity-routed batches directly reduce wire traffic — the
     analogue of the reference's doorbell-batched one-sided READs
     (rdma_reads.hh:9-38) where a CN pulls only the rows it needs.
 
@@ -323,7 +316,7 @@ def _rpc_bucket(lanes: int, num_shards: int, slack: float) -> int:
     return max(8, -(-want // 8) * 8)
 
 
-def _owned_distances(g: ShardedGraph, q_all, qn_all, ids_all, rows_per_shard, metric):
+def _owned_distances(g: ShardedGraph, q_all, ids_all, rows_per_shard, metric):
     """Shard-local distances for candidate ids this shard owns (0 elsewhere).
 
     q_all is the replicated full query batch; position b of ids_all belongs
@@ -334,14 +327,13 @@ def _owned_distances(g: ShardedGraph, q_all, qn_all, ids_all, rows_per_shard, me
     mine = (ids_all >= 0) & (local >= 0) & (local < rows_per_shard)
     safe = jnp.clip(local, 0, rows_per_shard - 1)
     vecs = g.vectors[safe].astype(jnp.float32)  # (B, K, d); f32/bf16 rows
-    dots = jnp.einsum(
-        "bd,bkd->bk", q_all, vecs, precision=DIST_PRECISION,
-        preferred_element_type=jnp.float32,
-    )
     if metric == METRIC_L2:
-        d = qn_all[:, None] - 2.0 * dots + g.vec_sqnorms[safe]
+        d = l2_rows(q_all, vecs)  # the single-device traversal's form
     else:
-        d = 1.0 - dots
+        d = 1.0 - jnp.einsum(
+            "bd,bkd->bk", q_all, vecs, precision=DIST_PRECISION,
+            preferred_element_type=jnp.float32,
+        )
     return jnp.where(mine, d, 0.0)
 
 
@@ -389,7 +381,6 @@ def _sharded_search_spmd(
     # replicate the query batch once; per-step exchanges are then int32/f32
     # lanes only (see module docstring)
     q_all = jax.lax.all_gather(q, SHARD_AXIS).reshape(num_shards * B_loc, -1)
-    qn_all = jax.lax.all_gather(qn, SHARD_AXIS).reshape(num_shards * B_loc)
 
     E = sp.frontier
     beam = beam_init(B_loc, sp.ef)
@@ -405,14 +396,24 @@ def _sharded_search_spmd(
         else:
             du = 1.0 - dots
         m = min(sp.entry_seeds, g.upper_ids.shape[0])
-        nd, sel = jax.lax.top_k(-du, m)
-        beam = beam_merge(beam, -nd, g.upper_ids[sel])
+        _, sel = jax.lax.top_k(-du, m)
+        seeds = g.upper_ids[sel]  # (B_loc, m) global ids
+        # seed distances from the owners, in the beam's own form, so a
+        # seed met again as a neighbour carries the same (dist, id)
+        seeds_all = jax.lax.all_gather(seeds, SHARD_AXIS).reshape(-1, m)
+        seed_d = jax.lax.psum_scatter(
+            _owned_distances(g, q_all, seeds_all, rows_per_shard, metric),
+            SHARD_AXIS,
+            scatter_dimension=0,
+            tiled=True,
+        )
+        beam = beam_merge(beam, seed_d, seeds)
     else:
         ep = _upper_descent(g, q, qn, metric)  # (B_loc,) global ids
         # entry distance via the owner-compute exchange
         ep_all = jax.lax.all_gather(ep, SHARD_AXIS).reshape(-1, 1)
         ep_d = jax.lax.psum_scatter(
-            _owned_distances(g, q_all, qn_all, ep_all, rows_per_shard, metric),
+            _owned_distances(g, q_all, ep_all, rows_per_shard, metric),
             SHARD_AXIS,
             scatter_dimension=0,
             tiled=True,
@@ -427,14 +428,13 @@ def _sharded_search_spmd(
     def local_distances(ids, rows, hit):
         """Distances for replica-hit candidate lanes (B_loc, K)."""
         vecs = replica.hot_vecs[rows].astype(jnp.float32)
-        dots = jnp.einsum(
-            "bd,bkd->bk", q, vecs, precision=DIST_PRECISION,
-            preferred_element_type=jnp.float32,
-        )
         if metric == METRIC_L2:
-            d = qn[:, None] - 2.0 * dots + replica.hot_sq[rows]
+            d = l2_rows(q, vecs)  # the owners' form (_owned_distances)
         else:
-            d = 1.0 - dots
+            d = 1.0 - jnp.einsum(
+                "bd,bkd->bk", q, vecs, precision=DIST_PRECISION,
+                preferred_element_type=jnp.float32,
+            )
         return jnp.where(hit & (ids >= 0), d, jnp.inf)
 
     def body(s: _ShardState):
@@ -532,20 +532,15 @@ def _sharded_search_spmd(
                 src = jax.lax.broadcasted_iota(jnp.int32, recv_ids.shape, 0)
                 qidx = src * B_loc + recv_aux  # slot into the replicated q_all
                 qv = q_all[qidx]  # (S, bucket, d)
-                # NB: numerically ~1e-4-close to the dense path, not
-                # bit-identical — XLA lowers the (lanes, 1, d) dot with a
-                # different d-reduction order than the dense (B, K, d)
-                # batched GEMM. Result ids still agree except on exact
-                # near-ties (tests/test_compact_exchange.py).
-                dots = jnp.einsum(
-                    "scd,scd->sc", qv, g.vectors[safe].astype(jnp.float32),
-                    precision=DIST_PRECISION,
-                    preferred_element_type=jnp.float32,
-                )
+                rows = g.vectors[safe].astype(jnp.float32)
                 if metric == METRIC_L2:
-                    dd = qn_all[qidx] - 2.0 * dots + g.vec_sqnorms[safe]
+                    # sum of squared differences, as the dense path
+                    dd = l2_rows(qv, rows[..., None, :])[..., 0]
                 else:
-                    dd = 1.0 - dots
+                    dd = 1.0 - jnp.einsum(
+                        "scd,scd->sc", qv, rows, precision=DIST_PRECISION,
+                        preferred_element_type=jnp.float32,
+                    )
                 return jnp.where(recv_ids >= 0, dd, jnp.inf)[..., None]
 
             lane_q = jnp.arange(B_loc * K, dtype=jnp.int32) // K
@@ -573,7 +568,7 @@ def _sharded_search_spmd(
                 cand_all = jax.lax.all_gather(cand_cold, SHARD_AXIS).reshape(
                     num_shards * B_loc, -1
                 )
-                # this gather is real ICI traffic even though it only
+                # this gather is real interconnect traffic even though it only
                 # feeds the access counters — count it so the compact-vs-
                 # dense wire comparison stays honest under adaptive cache
                 ici_bytes += jnp.float32((num_shards - 1) * B_loc * K * 4)
@@ -582,7 +577,7 @@ def _sharded_search_spmd(
                 num_shards * B_loc, -1
             )
             d_all = _owned_distances(
-                g, q_all, qn_all, cand_all, rows_per_shard, metric
+                g, q_all, cand_all, rows_per_shard, metric
             )
             d = jax.lax.psum_scatter(
                 d_all, SHARD_AXIS, scatter_dimension=0, tiled=True
@@ -668,7 +663,6 @@ def make_sharded_search(
     rows_per_shard = n_padded // S
     graph_spec = ShardedGraph(
         vectors=P(SHARD_AXIS),
-        vec_sqnorms=P(SHARD_AXIS),
         neighbors0=P(SHARD_AXIS),
         upper_ids=P(),
         upper_vecs=P(),
@@ -686,7 +680,7 @@ def make_sharded_search(
     )
 
     if with_cache:
-        rep_spec = HotReplica(P(), P(), P(), P())
+        rep_spec = HotReplica(P(), P(), P())
 
         @jax.jit
         def run(g: ShardedGraph, queries: jnp.ndarray, replica: HotReplica):
@@ -728,7 +722,7 @@ class SlackController:
 
     The right bucket slack depends on workload skew, routing, and the
     replica hit rate — the static default (2.0) is measured-wrong under
-    zipf skew + affinity routing (TPU_NOTES 'Sharded skew'): occupancy
+    zipf skew + affinity routing (measured): occupancy
     wins only convert to wire bytes if the bucket shrinks. This ladder
     probes each level on one live batch (results are identical at any
     slack — overflow re-queues exactly), then serves at the level with
@@ -760,9 +754,9 @@ class SlackController:
 
 
 class ShardedIndex:
-    """Multi-chip index: host/native build + SPMD sharded search.
+    """Multi-device index: host/native build + SPMD sharded search.
 
-    The TPU stand-in for the full CN+MN cluster (compute_node.cc +
+    The stand-in for the full CN+MN cluster (compute_node.cc +
     memory_node.hh): `mesh` plays the cluster, shards play MNs, query
     slices play CNs.
     """

@@ -4,13 +4,14 @@ The reference emits one JSON document per run from the initiator
 (/root/reference/src/common/statistics.hh:14-62, compute_node.cc:478-564):
 `meta` (cluster shape, dataset, labels), `hnsw_parameters`, build/query
 counters (distcomps, bytes moved, visited nodes, cache hits), QPS, recall,
-and `timings`. This module reproduces that schema for the TPU runtime so
+and `timings`. This module reproduces that schema for this runtime so
 downstream tooling (the exp_*/fetch_* analogue in scripts/) can consume
 either system's output.
 
-Counter semantics on TPU: per-thread counters summed across CNs become
+Counter semantics here: per-thread counters summed across CNs become
 per-batch on-device accumulators (hops = frontier expansions ~ visited
-nodes; distance computations = expansions x candidate lanes; HBM/ICI bytes
+nodes; distance computations = expansions x candidate lanes; memory and
+interconnect bytes
 are computed analytically from the traversal shape instead of being counted
 at the wire like rdma_reads_in_bytes, statistics.hh:152-158).
 """

@@ -2,13 +2,11 @@
 end and print one valid JSON line (reference analogue: the harness's
 benchmark runner, /root/reference/scripts/benchmark.py).
 
-Runs as a subprocess with SHINE_BENCH_CPU=1 (interpret-mode kernels) at
-tiny shapes — this exercises the same code the driver times on the real
-chip: dataset synth/cache, every index family row, the sustained-stream
-replay row, and the headline selection. An earlier round shipped a bench
-that crashed only on the fastflat rows (interpret flag not plumbed);
-this test exists so that class of breakage fails CI instead of the
-driver's timed run.
+Runs as a subprocess with JAX_PLATFORMS=cpu (the explicit CPU smoke mode;
+on the CPU the class-max scan takes its XLA engine) at tiny shapes — this
+exercises the same code the GPU run times: dataset synth/cache, every
+index family row, the sustained-stream replay row, and the headline
+selection, so a row that crashes fails here instead of on the card.
 """
 
 import json
@@ -22,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_bench_smoke(tmp_path):
     env = dict(
         os.environ,
-        SHINE_BENCH_CPU="1",
+        JAX_PLATFORMS="cpu",
         SHINE_BENCH_N="8192",
         SHINE_BENCH_D="32",
         SHINE_BENCH_Q="256",
@@ -43,14 +41,28 @@ def test_bench_smoke(tmp_path):
     # every family row must have run (a crashed row logs "# ... failed")
     assert "failed" not in out.stderr, out.stderr[-2000:]
     assert "# fastflat sustained x2:" in out.stderr
+    assert doc["device"]["platform"] == "cpu"
+
+
+def test_bench_refuses_cpu_without_explicit_platform(tmp_path):
+    """Off a GPU, bench.py runs only when JAX_PLATFORMS=cpu was set: an
+    unset platform that resolves to the CPU exits non-zero, no JSON."""
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env.update(SHINE_BENCH_CACHE=str(tmp_path), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench.py")],
+        env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode != 0
+    assert "needs a GPU" in out.stderr and not out.stdout.strip()
 
 
 def test_bench_gate(tmp_path):
     """--gate: floors that hold -> rc 0; an unreachable floor or a
-    missing row -> rc 2 with a GATE FAIL line (VERDICT r3 #6)."""
+    missing row -> rc 2 with a GATE FAIL line."""
     env = dict(
         os.environ,
-        SHINE_BENCH_CPU="1",
+        JAX_PLATFORMS="cpu",
         SHINE_BENCH_N="8192",
         SHINE_BENCH_D="32",
         SHINE_BENCH_Q="256",

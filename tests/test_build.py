@@ -136,9 +136,9 @@ def test_fast_build_graph_sharded_matches_single(ds, monkeypatch):
 
     monkeypatch.setattr(fb, "SHARD_KNN_MIN", 256)
     p = HNSWParams(M=8, ef_construction=60)
-    g1 = fb.fast_build_graph(ds.base, p, interpret=True)
+    g1 = fb.fast_build_graph(ds.base, p, exact_knn=True)
     mesh = shard_mesh(4)
-    g2 = fb.fast_build_graph(ds.base, p, interpret=True, mesh=mesh)
+    g2 = fb.fast_build_graph(ds.base, p, exact_knn=True, mesh=mesh)
     np.testing.assert_array_equal(g1.neighbors0, g2.neighbors0)
     np.testing.assert_array_equal(g1.levels, g2.levels)
     np.testing.assert_array_equal(g1.upper_neighbors, g2.upper_neighbors)
@@ -163,8 +163,8 @@ def test_fast_build_pool_widening(ds):
     from shine_tpu.models.fastbuild import fast_build_graph
 
     p = HNSWParams(M=8, ef_construction=80)
-    g0 = fast_build_graph(ds.base, p, interpret=True)
-    g1 = fast_build_graph(ds.base, p, interpret=True, pool=96)
+    g0 = fast_build_graph(ds.base, p, exact_knn=True)
+    g1 = fast_build_graph(ds.base, p, exact_knn=True, pool=96)
     g1.validate()
     sp = SearchParams(k=10, ef=48)
     r0 = recall_at_k(
@@ -184,7 +184,7 @@ def test_fast_build_graph(ds):
     from shine_tpu.models.fastbuild import fast_build_graph
 
     g = fast_build_graph(
-        ds.base, HNSWParams(M=12, ef_construction=80), interpret=True
+        ds.base, HNSWParams(M=12, ef_construction=80), exact_knn=True
     )
     g.validate()
     idx = HNSWIndex(g)
@@ -270,7 +270,7 @@ def test_fast_build_graph_device_base():
     ds = synthetic_dataset(n=8192, dim=16, num_queries=100, seed=21)
     p = HNSWParams(M=8, ef_construction=50)
     g = fast_build_graph(
-        ds.base, p, interpret=True, base_dev=jnp.asarray(ds.base)
+        ds.base, p, base_dev=jnp.asarray(ds.base)
     )
     g.validate()
     idx = HNSWIndex(g)
@@ -288,7 +288,7 @@ def test_fast_build_stage_checkpoint(ds, tmp_path, monkeypatch):
 
     p = HNSWParams(M=12, ef_construction=80)
     stage = str(tmp_path / "stage0.npz")
-    g1 = fb.fast_build_graph(ds.base, p, interpret=True, stage_path=stage)
+    g1 = fb.fast_build_graph(ds.base, p, exact_knn=True, stage_path=stage)
     import os
 
     assert os.path.exists(stage)
@@ -296,12 +296,12 @@ def test_fast_build_stage_checkpoint(ds, tmp_path, monkeypatch):
     n = len(ds.base)
     orig = fb._knn_candidates
 
-    def guard(vectors, ids, k, metric, interpret, mesh=None):
+    def guard(vectors, ids, k, metric, exact_knn, mesh=None):
         assert len(ids) < n, "layer-0 kNN re-ran despite the checkpoint"
-        return orig(vectors, ids, k, metric, interpret, mesh)
+        return orig(vectors, ids, k, metric, exact_knn, mesh)
 
     monkeypatch.setattr(fb, "_knn_candidates", guard)
-    g2 = fb.fast_build_graph(ds.base, p, interpret=True, stage_path=stage)
+    g2 = fb.fast_build_graph(ds.base, p, exact_knn=True, stage_path=stage)
     np.testing.assert_array_equal(g1.neighbors0, g2.neighbors0)
     np.testing.assert_array_equal(g1.levels, g2.levels)
     np.testing.assert_array_equal(g1.upper_neighbors, g2.upper_neighbors)
@@ -311,7 +311,7 @@ def test_fast_build_stage_checkpoint(ds, tmp_path, monkeypatch):
     # wrong key (M differs) -> checkpoint ignored, full build runs
     monkeypatch.setattr(fb, "_knn_candidates", orig)
     p2 = HNSWParams(M=8, ef_construction=80)
-    g3 = fb.fast_build_graph(ds.base, p2, interpret=True, stage_path=stage)
+    g3 = fb.fast_build_graph(ds.base, p2, exact_knn=True, stage_path=stage)
     assert g3.neighbors0.shape[1] == 16  # M0 = 2*M for the new params
 
 
@@ -405,13 +405,13 @@ def test_sweep_select_level0_identity():
     base_dev = jnp.asarray(ds.base)
     sqn = jnp.asarray((ds.base * ds.base).sum(-1).astype(np.float32))
     k, m_out, metric = 16, 8, 0
-    cand, cd = fb._knn_device_sweep(base_dev, k, metric, interpret=True)
+    cand, cd = fb._knn_device_sweep(base_dev, k, metric)
     ids = np.arange(len(ds.base), dtype=np.int32)
     sel_ref, _, seld_ref = fb._device_select(
         base_dev, sqn, ids, cand, cd, m_out, metric, with_dists=True
     )
     sel, sel_d = fb._sweep_select_level0(
-        base_dev, base_dev, sqn, k, m_out, metric, interpret=True
+        base_dev, base_dev, sqn, k, m_out, metric
     )
     np.testing.assert_array_equal(sel, sel_ref)
     np.testing.assert_array_equal(sel_d, seld_ref)
@@ -431,7 +431,7 @@ def test_sweep_int8_layout_recall(monkeypatch):
     monkeypatch.setenv("SHINE_SWEEP_INT8", "1")
     ds = synthetic_dataset(n=4096, dim=16, num_queries=1, seed=33)
     base_dev = jnp.asarray(ds.base)
-    cand, cd = fb._knn_device_sweep(base_dev, 8, 0, interpret=True)
+    cand, cd = fb._knn_device_sweep(base_dev, 8, 0)
     gt_i, gt_d = brute_force_knn(ds.base, ds.base, 9)
     # drop the self column from the oracle. Tolerance covers kernel-vs-
     # numpy f32 summation-order noise (~4e-5 relative measured); a

@@ -72,13 +72,11 @@ def test_capacity_exact_regen_recall():
         n=8192, dim=16, num_queries=64, seed=3, rchunk=2048
     )
     bf = FastFlatIndex.from_ext(ds.ext_dev, ds.n, dim=16)
-    bf.interpret = True
-    ids_bf, _ = bf.search(ds.queries, 10, kb=32, batch_size=64, tq=64)
+    ids_bf, _ = bf.search(ds.queries, 10, kb=32, batch_size=64)
     ex = FastFlatIndex.from_ext(
         ds.ext_dev, ds.n, dim=16, row_source=ds.row_source
     )
-    ex.interpret = True
-    ids_ex, dists_ex = ex.search(ds.queries, 10, kb=32, batch_size=64, tq=64)
+    ids_ex, dists_ex = ex.search(ds.queries, 10, kb=32, batch_size=64)
     r_bf = recall_at_k(ids_bf, ds.ground_truth, 10)
     r_ex = recall_at_k(ids_ex, ds.ground_truth, 10)
     assert r_ex >= r_bf - 1e-9
@@ -98,13 +96,12 @@ def test_sharded_capacity_matches_single_chip():
         ds.ext_dev, ds.n, mesh, dim=16, row_source=ds.row_source
     )
     assert cap.dim == 16 and cap.rows == 4096
-    sids, sdists = cap.search(ds.queries, 10, kb=32, tq=64, batch_size=64)
+    sids, sdists = cap.search(ds.queries, 10, kb=32, batch_size=64)
     single = FastFlatIndex.from_ext(
         jnp.asarray(np.asarray(ds.ext_dev)), ds.n, dim=16,
         row_source=ds.row_source,
     )
-    single.interpret = True
-    fids, _ = single.search(ds.queries, 10, kb=32, batch_size=64, tq=64)
+    fids, _ = single.search(ds.queries, 10, kb=32, batch_size=64)
     assert recall_at_k(sids, ds.ground_truth, 10) > 0.95
     assert recall_at_k(fids, ds.ground_truth, 10) > 0.95
     # both re-rank exactly, so wherever both scans kept the true rows the
@@ -122,7 +119,7 @@ def test_sharded_capacity_bf16_rerank_path():
         n=16384, dim=16, num_queries=64, seed=7, rchunk=2048, mesh=mesh
     )
     cap = ShardedFastFlatIndex.from_ext(ds.ext_dev, ds.n, mesh, dim=16)
-    ids, dists = cap.search(ds.queries, 10, kb=32, tq=64, batch_size=64)
+    ids, dists = cap.search(ds.queries, 10, kb=32, batch_size=64)
     assert recall_at_k(ids, ds.ground_truth, 10) > 0.9
     assert np.all(np.diff(dists, axis=1) >= -1e-2)
 
@@ -139,9 +136,9 @@ def test_sharded_capacity_prerank_trim():
     cap = ShardedFastFlatIndex.from_ext(
         ds.ext_dev, ds.n, mesh, dim=16, row_source=ds.row_source
     )
-    ids0, _ = cap.search(ds.queries, 10, kb=32, tq=64, batch_size=64)
+    ids0, _ = cap.search(ds.queries, 10, kb=32, batch_size=64)
     ids1, dd1 = cap.search(
-        ds.queries, 10, kb=32, tq=64, batch_size=64, prerank=16
+        ds.queries, 10, kb=32, batch_size=64, prerank=16
     )
     r0 = recall_at_k(ids0, ds.ground_truth, 10)
     r1 = recall_at_k(ids1, ds.ground_truth, 10)
@@ -155,9 +152,9 @@ def test_sharded_capacity_prerank_trim():
         )
     )
     full = ShardedFastFlatIndex(base, mesh, shuffle=False)
-    fids0, _ = full.search(ds.queries, 10, kb=32, tq=64, batch_size=64)
+    fids0, _ = full.search(ds.queries, 10, kb=32, batch_size=64)
     fids1, _ = full.search(
-        ds.queries, 10, kb=32, tq=64, batch_size=64, prerank=16
+        ds.queries, 10, kb=32, batch_size=64, prerank=16
     )
     f0 = recall_at_k(fids0, ds.ground_truth, 10)
     f1 = recall_at_k(fids1, ds.ground_truth, 10)
@@ -173,5 +170,5 @@ def test_rowkeyed_mesh_rounds_to_shard_quantum():
     )
     assert ds.n % (4096 * 8) == 0
     cap = ShardedFastFlatIndex.from_ext(ds.ext_dev, ds.n, mesh, dim=8)
-    ids, _ = cap.search(ds.queries, 5, kb=16, tq=16, batch_size=16)
+    ids, _ = cap.search(ds.queries, 5, kb=16, batch_size=16)
     assert recall_at_k(ids, ds.ground_truth, 5) > 0.9

@@ -127,7 +127,7 @@ def test_cli_sharded_ivf_routed(capsys):
 
 def test_cli_sharded_hnsw_compact_exchange(capsys):
     """--exchange compact serves over the bucketed all_to_all RPC and
-    reports the measured (nonzero) ICI byte counter."""
+    reports the measured (nonzero) interconnect byte counter."""
     doc = run_cli(
         ["--synthetic", "3000:16", "--index", "hnsw", "-m", "8",
          "--ef-construction", "50", "--ef-search", "48", "--shards", "4",
@@ -245,7 +245,7 @@ def test_cli_routed_synthetic(capsys):
 
 def test_cli_index_auto(capsys):
     # --index auto resolves by the measured rows-per-chip rule
-    # (TPU_NOTES "Rate model"): small synthetic -> fastflat
+    # small synthetic -> fastflat
     doc = run_cli(
         ["--synthetic", "4096:16", "--index", "auto",
          "--num-queries", "100"],
@@ -254,25 +254,44 @@ def test_cli_index_auto(capsys):
     assert doc["queries"]["recall"] > 0.95
 
 
-def test_auto_index_family_boundaries():
-    """The three-family rule at its measured edges (config.py): fastflat
-    to 20M rows/chip, routed through 64M (41.9M holds >=0.95 at ~7x the
-    exact split QPS), exact split beyond. Shards divide the rows."""
+def test_auto_index_family_boundaries(monkeypatch):
+    """The three-family rule at its edges (config.py): fastflat while its
+    layout fits the device's memory, routed through 64M (the recall
+    rule), exact split beyond. Shards divide the rows."""
     from shine_tpu.config import (
-        AUTO_FASTFLAT_MAX_ROWS,
         AUTO_ROUTED_MAX_ROWS,
         auto_index_family,
+        fastflat_max_rows,
     )
 
-    f, r = int(AUTO_FASTFLAT_MAX_ROWS), int(AUTO_ROUTED_MAX_ROWS)
-    assert auto_index_family(f) == "fastflat"
-    assert auto_index_family(f + 1) == "routed"
-    assert auto_index_family(r) == "routed"
-    assert auto_index_family(r + 1) == "split"
-    # shards scale the per-chip rows: 8 chips push the boundary 8x out
-    assert auto_index_family(8 * f, shards=8) == "fastflat"
-    assert auto_index_family(8 * f + 8, shards=8) == "routed"
-    assert auto_index_family(8 * r + 8, shards=8) == "split"
+    # a 16 GB device at d=128 (836 B/row): ~16.4M fastflat rows
+    monkeypatch.setenv("SHINE_HBM_BYTES", str(16 << 30))
+    f, r = fastflat_max_rows(128), int(AUTO_ROUTED_MAX_ROWS)
+    assert 16_000_000 < f < 17_000_000
+    assert auto_index_family(f, 128) == "fastflat"
+    assert auto_index_family(f + 1, 128) == "routed"
+    assert auto_index_family(r, 128) == "routed"
+    assert auto_index_family(r + 1, 128) == "split"
+    # shards scale the per-device rows: 8 devices push the boundary out
+    assert auto_index_family(8 * f, 128, shards=8) == "fastflat"
+    assert auto_index_family(8 * f + 8, 128, shards=8) == "routed"
+    assert auto_index_family(8 * r + 8, 128, shards=8) == "split"
+    # a larger device holds more rows; the recall rule does not move
+    monkeypatch.setenv("SHINE_HBM_BYTES", str(60 << 30))
+    assert fastflat_max_rows(128) > 3 * f
+    assert auto_index_family(r + 1, 128) == "split"
+
+
+def test_device_bytes_requires_a_stated_limit(monkeypatch):
+    """A device without memory_stats()["bytes_limit"] (the CPU) is an
+    error for the memory-derived rules unless SHINE_HBM_BYTES states it."""
+    from shine_tpu.config import device_bytes
+
+    monkeypatch.delenv("SHINE_HBM_BYTES", raising=False)
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        device_bytes()
+    monkeypatch.setenv("SHINE_HBM_BYTES", "1e9")
+    assert device_bytes() == 1_000_000_000
 
 
 def test_cli_index_auto_routed_and_split_e2e(capsys, monkeypatch):

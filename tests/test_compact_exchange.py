@@ -1,5 +1,5 @@
 """Compact bucketed-all_to_all owner RPC for the sharded search
-(parallel/sharded.py:_owner_rpc) — the ICI-lean replacement for the dense
+(parallel/sharded.py:_owner_rpc) — the interconnect-lean replacement for the dense
 all_gather/psum_scatter exchange. Must be bit-identical to the dense path
 (nothing is dropped: overflowing buckets are served in further rounds),
 the moral equivalent of the reference's doorbell-batched one-sided READs

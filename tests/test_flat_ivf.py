@@ -1,4 +1,4 @@
-"""MXU-native index family: exact brute force (FlatIndex) and clustered
+"""Scan index family: exact brute force (FlatIndex) and clustered
 IVF (IVFIndex) — recall vs the numpy oracle."""
 
 import numpy as np
@@ -217,8 +217,8 @@ def test_ivf_routed_chunked_scan_matches(ds):
 
 def test_measured_defaults_auto_clusters():
     """The routed serving mode auto-picks COARSE clusters (C clamped to
-    ~2k at any N — TPU_NOTES '1M x 64': fine C=7813 collapses routed
-    coverage to 0.45/recall 0.55); fine stays cap~target_cap."""
+    ~2k at any N — at 1M x 64 a fine C=7813 collapses routed coverage
+    to 0.45/recall 0.55); fine stays cap~target_cap."""
     from shine_tpu.models.ivf import _auto_clusters
 
     assert _auto_clusters(200_000, 128, "fine") == -(-200_000 // 128)
@@ -232,7 +232,7 @@ def test_measured_defaults_auto_clusters():
 
 def test_measured_defaults_keep2_auto():
     """keep2 auto-enables once rows-per-class >= ~500 (the measured
-    one-decoy regime, TPU_NOTES '1M x 64 keep2 refresh')."""
+    one-decoy regime)."""
     from shine_tpu.models.flat import keep2_auto
 
     assert not keep2_auto(200_704, 1024)  # 200k x 128 bench: ~195 r/cls
@@ -243,24 +243,21 @@ def test_measured_defaults_keep2_auto():
 
 
 def test_resolve_knobs_at_headline_shapes():
-    """Lock the full auto-knob tuple at the two published operating
-    shapes: 200k x 128 (bench headline: keep1/cls2048/unfused at kb=32)
-    and 1M x 128 (keep2/cls1024 at kb=64 UNFUSED — the r4f chip ablation
-    against exact GT, results/diag_1m_recall.jsonl: kb32 scores 0.9914,
-    kb64 recovers 1.0000 for ~6% QPS; the keep2 fusion is register-spill
-    capped at kb<=32 so kb=64 takes the unfused select). An auto-rule
-    change that silently moves either config should fail here first,
-    not on the chip."""
+    """Lock the full auto-knob tuple (kb, cls, keep2) at two operating
+    shapes: 200k x 128 (keep1/cls2048 at kb=32) and 1M x 128
+    (keep2/cls1024 at kb=64 — against exact ground truth kb32 scores
+    0.9914 and kb64 recovers 1.0000). An auto-rule change that silently
+    moves either config should fail here first, not on the chip."""
     from shine_tpu.models.flat import FastFlatIndex, kb_auto
 
     def resolved(n_pad):
         idx = FastFlatIndex.__new__(FastFlatIndex)
         idx.ext = np.zeros((n_pad, 8), np.int8)  # only .shape[0] is read
         idx.dim = 128
-        return idx._resolve_knobs(0, 0, None, None, False)
+        return idx._resolve_knobs(0, 0, None)
 
-    assert resolved(200_704) == (32, 2048, False, False)
-    assert resolved(1_048_576) == (64, 1024, True, False)
+    assert resolved(200_704) == (32, 2048, False)
+    assert resolved(1_048_576) == (64, 1024, True)
     assert kb_auto(200_704, 128) == 32
     assert kb_auto(999_999, 128) == 32
     assert kb_auto(1_000_000, 128) == 64
@@ -268,12 +265,12 @@ def test_resolve_knobs_at_headline_shapes():
 
 
 def test_flat_search_f32_leg_requests_highest_precision():
-    """Regression for the r4 device-GT corruption (TPU_NOTES 'ROOT
-    CAUSE'): TPU DEFAULT matmul precision truncates f32 operands to
-    bf16, so the exact scan (use_bf16=False — the path every device
-    ground truth rides) MUST request HIGHEST explicitly. CPU execution
-    can't observe the truncation, so assert it structurally: every f32
-    dot_general in the traced program carries HIGHEST."""
+    """Regression for a device ground-truth corruption: DEFAULT matmul
+    precision may run f32 operands at bf16 or TF32 grade, so the exact
+    scan (use_bf16=False — the path every device ground truth rides)
+    MUST request HIGHEST explicitly. CPU execution can't observe the
+    truncation, so assert it structurally: every f32 dot_general in the
+    traced program carries HIGHEST."""
     import jax
     from shine_tpu.models.flat import flat_search
 

@@ -37,7 +37,7 @@ def test_sharded_sqnorms_bitwise_match_single(ds):
     host-numpy (v*v).sum(-1) rounds differently from the XLA row reduce
     at the last ulp (~72% of rows at 64k x 64), which flipped (dist, id)
     ties at the k-cutoff and broke single-vs-sharded fastbuild neighbor
-    identity at 262k (docs/TPU_NOTES.md round 5). Both constructors must
+    identity at 262k. Both constructors must
     use _row_sq, and the f32 searches must agree exactly."""
     mesh = shard_mesh(8)
     sh = ShardedFlatIndex(ds.base, mesh)
@@ -65,7 +65,7 @@ def test_sharded_fastflat(ds):
 
     mesh = shard_mesh(4)
     idx = ShardedFastFlatIndex(ds.base, mesh)
-    ids, dists = idx.search(ds.queries, 10, tq=128, batch_size=128)
+    ids, dists = idx.search(ds.queries, 10, batch_size=128)
     assert recall_at_k(ids, ds.ground_truth, 10) > 0.97
     assert np.all(np.diff(dists, axis=1) >= -1e-3)
 
@@ -78,9 +78,8 @@ def test_sharded_fastflat_keep2(ds):
 
     mesh = shard_mesh(4)
     idx = ShardedFastFlatIndex(ds.base, mesh)
-    a, _ = idx.search(ds.queries, 10, kb=16, cls=128, batch_size=256, tq=128)
-    b, _ = idx.search(ds.queries, 10, kb=16, cls=128, batch_size=256,
-                      tq=128, keep2=True)
+    a, _ = idx.search(ds.queries, 10, kb=16, cls=128, batch_size=256)
+    b, _ = idx.search(ds.queries, 10, kb=16, cls=128, batch_size=256, keep2=True)
     ra = recall_at_k(a, ds.ground_truth, 10)
     rb = recall_at_k(b, ds.ground_truth, 10)
     assert rb >= ra

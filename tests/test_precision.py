@@ -1,20 +1,20 @@
 """Regression tests for the f32 ranking-matmul precision bug class.
 
-Root cause (round 4, docs/TPU_NOTES.md "ROOT CAUSE"): TPU DEFAULT matmul
-precision truncates f32 operands to bfloat16, so any exact/f32 ranking
-matmul that omits `precision=` silently degrades to bf16-grade on chip.
+Root cause: DEFAULT matmul precision may run f32 operands at bfloat16 or
+TF32 grade on an accelerator, so any exact/f32 ranking matmul that omits
+`precision=` silently degrades to that grade on the device.
 The device ground truth rode exactly such a path (flat_search's f32
 scan), corrupting every >=1M id-recall reading until fixed with
 `precision=HIGHEST`.
 
 These tests lock the fix structurally: they trace the f32 ranking entry
 points and assert every `dot_general` with float32 operands carries
-HIGHEST precision. bf16-input matmuls are exempt (they hit the MXU
-natively; DEFAULT is correct and fastest).
+HIGHEST precision. bf16-input matmuls are exempt (they run on the tensor
+cores natively; DEFAULT is correct and fastest).
 
 Reference analog: the reference's AVX2 distance kernels are always full
 f32 (/root/reference/src/hnsw/dist.hh) — there is no silent-downcast
-hazard to guard there; on TPU there is.
+hazard to guard there; on an accelerator there is.
 """
 
 import jax
@@ -64,8 +64,8 @@ def test_flat_search_f32_leg_uses_highest_precision():
     bad = _f32_dots_without_highest(jaxpr)
     assert not bad, (
         f"f32 ranking dot_general without HIGHEST precision: "
-        f"{[(str(e.primitive), p) for e, p in bad]} — TPU DEFAULT "
-        "truncates f32 operands to bf16 (TPU_NOTES r4 ROOT CAUSE)"
+        f"{[(str(e.primitive), p) for e, p in bad]} — DEFAULT precision "
+        "may run f32 operands at bf16/TF32 grade"
     )
 
 
@@ -109,8 +109,8 @@ def test_distance_module_default_precision_is_highest():
 
 def test_squared_norms_is_explicit_highest_dot():
     """squared_norms must lower to an explicit HIGHEST dot_general (not
-    a bare reduce XLA:TPU could rewrite into a DEFAULT-precision MXU
-    self-dot) and match numpy f64 to f32 accuracy."""
+    a bare reduce XLA could rewrite into a DEFAULT-precision self-dot)
+    and match numpy f64 to f32 accuracy."""
     x = np.random.default_rng(0).standard_normal((64, 128)).astype(np.float32)
     from shine_tpu.ops.distance import squared_norms
 
@@ -123,19 +123,50 @@ def test_squared_norms_is_explicit_highest_dot():
     np.testing.assert_allclose(got, want, rtol=2e-6)
 
 
+@pytest.mark.parametrize("rows", ["f32", "bf16"])
+def test_traversal_l2_is_explicit_highest_dot(rows):
+    """The beam's L2 distances (hnsw._dist_ext -> distance.l2_rows, also
+    the sharded traversal's form) square the differences in an explicit
+    HIGHEST contraction, and match numpy f64 to f32 accuracy."""
+    from shine_tpu.models.hnsw import DeviceGraph, _dist_ext
+    from shine_tpu.ops.distance import l2_rows
+
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal((256, 128)).astype(np.float32)
+    q = rng.standard_normal((8, 128)).astype(np.float32)
+    ids = rng.integers(-1, 256, size=(8, 32)).astype(np.int32)
+    table = jnp.asarray(v, jnp.bfloat16 if rows == "bf16" else jnp.float32)
+    g = DeviceGraph(vectors_ext=table, neighbors0=None, upper_row=None,
+                    upper_neighbors=None, entry_point=None, upper_ids=None,
+                    upper_vecs_ext=None, row_scl=None, row_nrm=None)
+    q_ext = jnp.asarray(-2.0 * q)
+    for fn, args in ((l2_rows, (jnp.asarray(q), table[np.maximum(ids, 0)])),
+                     (lambda *a: _dist_ext(g, *a), (q_ext, q_ext[:, 0],
+                                                    jnp.asarray(ids)))):
+        jaxpr = jax.make_jaxpr(fn)(*args)
+        assert any(e.primitive.name == "dot_general"
+                   for e in jaxpr.jaxpr.eqns)
+        assert not _f32_dots_without_highest(jaxpr)
+    got = np.asarray(_dist_ext(g, q_ext, q_ext[:, 0], jnp.asarray(ids)))
+    rows64 = np.asarray(table.astype(jnp.float32), np.float64)
+    want = ((rows64[np.maximum(ids, 0)] - q[:, None, :]) ** 2).sum(-1)
+    want = np.where(ids >= 0, want, np.inf)
+    np.testing.assert_allclose(got, want, rtol=2e-6)
+
+
 def test_device_pack_ext_norm_residual_is_exact():
-    """_pack_ext_device's c0+c1 norm pair must reconstruct -||v||^2 to
+    """pack_ext_device's c0+c1 norm pair must reconstruct -||v||^2 to
     ~2^-16 relative — the whole point of the residual encoding; a
-    DEFAULT-precision norm would leave c1 as noise (the r4 from_device
-    0.9914-vs-0.9999 scan-stage gap)."""
-    from shine_tpu.models.flat import _pack_ext_device
+    DEFAULT-precision norm would leave c1 as noise (a measured
+    0.9914-vs-0.9999 recall gap at the scan stage)."""
     from shine_tpu.config import METRIC_L2
+    from shine_tpu.ops.packing import ext_width, pack_ext_device
 
     rng = np.random.default_rng(2)
     v = rng.standard_normal((4096, 128)).astype(np.float32)
     ext = np.asarray(
-        _pack_ext_device(jnp.asarray(v), metric=METRIC_L2, dp=256,
-                         rchunk=1024)
+        pack_ext_device(jnp.asarray(v), metric=METRIC_L2,
+                        dp=ext_width(128), rchunk=1024)
     ).astype(np.float32)
     recon = ext[:, 128] + ext[:, 129]
     want = -(v.astype(np.float64) ** 2).sum(-1)

@@ -1,12 +1,10 @@
 """Routed split-layout capacity serving (models/routed_split.py).
 
 Small-N CPU checks of the full pipeline: balanced clustered ingest
-(streamed, no resident base), sort-based tile-shared routing, the
-routed class-max Pallas kernel (interpret mode) vs the XLA emulation,
-exact re-rank. Class-max select bounds recall at ~1 - 4.5/cls (birthday
-collisions of the true top-10 across class lanes) even at full probes —
-asserts are set against that model, the exact-rerank precision claim is
-carried by the id-level engine-equivalence test.
+(streamed, no resident base), sort-based tile-shared routing, the routed
+class-max block scan, exact re-rank. Class-max select bounds recall at
+~1 - 4.5/cls (birthday collisions of the true top-10 across class lanes)
+even at full probes — asserts are set against that model.
 """
 
 import numpy as np
@@ -71,18 +69,6 @@ def test_routed_split_base_dev_recall(small_base, small_idx):
     assert idx.last_coverage >= max(cov_narrow, 0.9)
 
 
-def test_routed_split_engines_match(small_base, small_idx):
-    """The Pallas kernel (interpret) and the XLA emulation implement the
-    same class-max semantics — identical survivor ids end to end."""
-    base, queries = small_base
-    idx = small_idx
-    kw = dict(probes=8, shared=16, tile=32, kk=48, batch_size=64)
-    ids_x, d_x = idx.search(queries, 10, engine="xla", **kw)
-    ids_p, d_p = idx.search(queries, 10, engine="interpret", **kw)
-    assert (ids_x == ids_p).all()
-    np.testing.assert_allclose(d_x, d_p, rtol=1e-5, atol=1e-5)
-
-
 def test_routed_split_gid_is_permutation(small_base, small_idx):
     base, _ = small_base
     idx = small_idx
@@ -91,7 +77,7 @@ def test_routed_split_gid_is_permutation(small_base, small_idx):
     assert real.shape[0] == base.shape[0]
     assert (real == np.arange(base.shape[0])).all()
     # gid/comp may carry ingest-pad rows past (C+1)*cap — all -1, never
-    # addressed by the kernel (cols <= C)
+    # addressed by the scan (cols <= C)
     n_pad = (idx.C + 1) * idx.cap
     assert (gid[n_pad:] == -1).all()
     gid = gid[:n_pad]
@@ -207,7 +193,7 @@ def test_aux_layout_chunked_matches_flat():
     aux_routed_layout of the concatenated flat aux bit-exactly — the
     ingest scan uses the per-chunk form so the flat (2, n_pad) aux
     never materializes (the 100M ResourceExhausted fix)."""
-    from shine_tpu.ops.pallas_scan_routed import (
+    from shine_tpu.ops.packing import (
         aux_routed_layout,
         aux_routed_layout_chunk,
     )
@@ -228,8 +214,7 @@ def test_aux_layout_chunked_matches_flat():
 
 
 def test_assign_r_keeps_spilled_rows_reachable():
-    """The measured 41.9M failure mode (docs/TPU_NOTES.md 'Routed
-    spill'): rows that overflow their choice list used to fall to the
+    """The measured 41.9M failure mode (routed spill): rows that overflow their choice list used to fall to the
     round-robin open-slot fallback — effectively random clusters no
     probe list reaches (p99 assigned-cluster rank ~0.65*C). With the
     balance-refined centroids + R=8 choices + the nearest-open widen
@@ -339,5 +324,5 @@ def test_recenter_routing_member_means():
         atol=1e-4,
     )
     ids, _ = idx.search(queries, 10, probes=8, batch_size=128,
-                        engine="xla", fallback=0, with_dists=False)
+                        fallback=0, with_dists=False)
     assert recall_at_k(ids, gt, 10) > 0.9

@@ -1,5 +1,5 @@
-"""Split-layout scan (ops/pallas_scan_split.py, models/flat.SplitFlatIndex):
-interpret mode on CPU; real lowering is exercised on TPU by bench runs."""
+"""Split-layout scan (ops/classmax.classmax_split, models/flat.SplitFlatIndex)
+and the shared re-rank / trim helpers."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,21 +20,17 @@ def _ref_scores(v, q, metric=METRIC_L2):
 
 
 def test_classmax_scan_split_matches_numpy(rng):
-    from shine_tpu.ops.pallas_scan_split import (
-        classmax_scan_split,
-        pack_split_query,
-        pack_split_tables,
-    )
+    from shine_tpu.ops.classmax import classmax_split
+    from shine_tpu.ops.packing import pack_split_query, pack_split_tables
 
     n, d, B = 4096, 64, 128
     v = rng.normal(size=(n, d)).astype(np.float32)
     q = rng.normal(size=(B, d)).astype(np.float32)
     comp, aux = pack_split_tables(v, METRIC_L2, n)
     cls, tn = 512, 1024
-    m1, a1 = classmax_scan_split(
+    m1, a1 = classmax_split(
         jnp.asarray(comp).astype(jnp.bfloat16), jnp.asarray(aux),
-        pack_split_query(jnp.asarray(q), comp.shape[1]),
-        tq=128, tn=tn, cls=cls, interpret=True,
+        pack_split_query(jnp.asarray(q), comp.shape[1]), tn=tn, cls=cls,
     )
     scores = _ref_scores(v, q)
     # class of row r = r % cls under the strided layout
@@ -50,20 +46,17 @@ def test_classmax_scan_split_matches_numpy(rng):
 
 
 def test_classmax_scan_split_keep2(rng):
-    from shine_tpu.ops.pallas_scan_split import (
-        classmax_scan_split,
-        pack_split_query,
-        pack_split_tables,
-    )
+    from shine_tpu.ops.classmax import classmax_split
+    from shine_tpu.ops.packing import pack_split_query, pack_split_tables
 
     n, d, B, cls = 2048, 32, 128, 256
     v = rng.normal(size=(n, d)).astype(np.float32)
     q = rng.normal(size=(B, d)).astype(np.float32)
     comp, aux = pack_split_tables(v, METRIC_L2, n)
-    m1, a1, m2, a2 = classmax_scan_split(
+    m1, a1, m2, a2 = classmax_split(
         jnp.asarray(comp).astype(jnp.bfloat16), jnp.asarray(aux),
-        pack_split_query(jnp.asarray(q), comp.shape[1]),
-        tq=128, tn=512, cls=cls, keep2=True, interpret=True,
+        pack_split_query(jnp.asarray(q), comp.shape[1]), tn=512, cls=cls,
+        keep2=True,
     )
     scores = _ref_scores(v, q)
     m1n, m2n = np.asarray(m1), np.asarray(m2)
@@ -83,7 +76,7 @@ def test_split_index_exact_rerank_recall(rng):
     from shine_tpu.models.flat import FlatIndex, SplitFlatIndex
 
     ds = synthetic_dataset(n=6000, dim=48, num_queries=64, seed=3, gt_k=10)
-    idx = SplitFlatIndex(ds.base, interpret=True)
+    idx = SplitFlatIndex(ds.base)
     ids, dd = idx.search(ds.queries, 10, kb=16, cls=256, keep2=False)
     r = recall_at_k(ids, ds.ground_truth, 10)
     assert r >= 0.97, r
@@ -101,7 +94,7 @@ def test_split_index_int8_recall(rng):
     from shine_tpu.models.flat import SplitFlatIndex
 
     ds = synthetic_dataset(n=6000, dim=48, num_queries=64, seed=5, gt_k=10)
-    idx = SplitFlatIndex(ds.base, comp_dtype="int8", interpret=True)
+    idx = SplitFlatIndex(ds.base, comp_dtype="int8")
     ids, _ = idx.search(ds.queries, 10, kb=24, cls=256, keep2=True)
     r = recall_at_k(ids, ds.ground_truth, 10)
     assert r >= 0.93, r
@@ -115,10 +108,7 @@ def test_split_capacity_rerank_paths(rng):
     from shine_tpu.io import recall_at_k
     from shine_tpu.io.device_synth import regen_rows
     from shine_tpu.models.flat import FlatIndex, SplitFlatIndex
-    from shine_tpu.ops.pallas_scan_split import (
-        comp_width,
-        pack_split_device,
-    )
+    from shine_tpu.ops.packing import comp_width, pack_split_device
 
     key = jax.random.PRNGKey(11)
     centers = jax.random.normal(
@@ -136,14 +126,12 @@ def test_split_capacity_rerank_paths(rng):
         jnp.asarray(base), metric=METRIC_L2, dpc=comp_width(d)
     )
     idx = SplitFlatIndex.from_parts(comp, aux, n, dim=d)
-    idx.interpret = True
     ids, _ = idx.search(q, 10, kb=16, cls=256, keep2=False)
     assert recall_at_k(ids, gt, 10) >= 0.95
     # exact regen re-rank
     idx2 = SplitFlatIndex.from_parts(
         comp, aux, n, dim=d, row_source=(key, centers)
     )
-    idx2.interpret = True
     ids2, dd2 = idx2.search(q, 10, kb=16, cls=256, keep2=False)
     assert recall_at_k(ids2, gt, 10) >= 0.97
     # regen re-rank distances are exact f32 distances
@@ -153,7 +141,7 @@ def test_split_capacity_rerank_paths(rng):
 
 
 def test_pack_split_device_matches_host(rng):
-    from shine_tpu.ops.pallas_scan_split import (
+    from shine_tpu.ops.packing import (
         comp_width,
         pack_split_device,
         pack_split_tables,
@@ -186,7 +174,7 @@ def test_approx_select_paths(rng):
     from shine_tpu.models.flat import FastFlatIndex, SplitFlatIndex
 
     ds = synthetic_dataset(n=6000, dim=48, num_queries=64, seed=4, gt_k=10)
-    spl = SplitFlatIndex(ds.base, interpret=True)
+    spl = SplitFlatIndex(ds.base)
     ids_e, _ = spl.search(ds.queries, 10, kb=16, cls=256, keep2=False)
     ids_a, _ = spl.search(
         ds.queries, 10, kb=16, cls=256, keep2=False, approx_sel=True
@@ -194,7 +182,7 @@ def test_approx_select_paths(rng):
     re = recall_at_k(ids_e, ds.ground_truth, 10)
     ra = recall_at_k(ids_a, ds.ground_truth, 10)
     assert ra >= re - 0.02, (re, ra)
-    fast = FastFlatIndex(ds.base, interpret=True)
+    fast = FastFlatIndex(ds.base)
     ids_f, _ = fast.search(ds.queries, 10, kb=16, approx_sel=True)
     assert recall_at_k(ids_f, ds.ground_truth, 10) >= 0.95
 
@@ -204,8 +192,8 @@ def test_prerank_trim_helpers(rng):
     candidate ids under the stage-1 scores with (score, id) tie-breaks,
     and keep -1 pads out."""
     from shine_tpu.ops.distance import prerank_trim_ext, prerank_trim_split
-    from shine_tpu.ops.pallas_scan import pack_ext_query, pack_ext_table
-    from shine_tpu.ops.pallas_scan_split import comp_width, pack_split_tables
+    from shine_tpu.ops.packing import pack_ext_query, pack_ext_table
+    from shine_tpu.ops.packing import comp_width, pack_split_tables
 
     n, d, B, K, pre = 512, 24, 16, 32, 8
     v = rng.normal(size=(n, d)).astype(np.float32)
@@ -267,10 +255,10 @@ def test_prerank_search_paths(rng):
     from shine_tpu.io import recall_at_k, synthetic_dataset
     from shine_tpu.io.device_synth import regen_rows
     from shine_tpu.models.flat import FastFlatIndex, FlatIndex, SplitFlatIndex
-    from shine_tpu.ops.pallas_scan_split import comp_width, pack_split_device
+    from shine_tpu.ops.packing import comp_width, pack_split_device
 
     ds = synthetic_dataset(n=6000, dim=48, num_queries=64, seed=7, gt_k=10)
-    fast = FastFlatIndex(ds.base, interpret=True)
+    fast = FastFlatIndex(ds.base)
     ids0, dd0 = fast.search(ds.queries, 10, kb=16)
     ids1, dd1 = fast.search(ds.queries, 10, kb=16, prerank=16)
     r0 = recall_at_k(ids0, ds.ground_truth, 10)
@@ -279,7 +267,7 @@ def test_prerank_search_paths(rng):
     # where the trim kept the same id, the exact distance is unchanged
     match = ids0 == ids1
     np.testing.assert_allclose(dd1[match], dd0[match], rtol=0, atol=0)
-    spl = SplitFlatIndex(ds.base, interpret=True)
+    spl = SplitFlatIndex(ds.base)
     ids2, _ = spl.search(ds.queries, 10, kb=32, cls=256, keep2=False,
                          prerank=16)
     assert recall_at_k(ids2, ds.ground_truth, 10) >= 0.95
@@ -302,7 +290,6 @@ def test_prerank_search_paths(rng):
     cap = SplitFlatIndex.from_parts(
         comp, aux, n, dim=d, row_source=(key, centers)
     )
-    cap.interpret = True
     ids3, _ = cap.search(q, 10, kb=32, cls=256, keep2=False, prerank=16)
     assert recall_at_k(ids3, gt, 10) >= 0.97
 
@@ -314,55 +301,9 @@ def test_split_ip_metric(rng):
     ds = synthetic_dataset(
         n=4096, dim=32, num_queries=48, seed=9, gt_k=10, metric="ip"
     )
-    idx = SplitFlatIndex(ds.base, metric="ip", interpret=True)
+    idx = SplitFlatIndex(ds.base, metric="ip")
     ids, _ = idx.search(ds.queries, 10, kb=16, cls=256, keep2=False)
     assert recall_at_k(ids, ds.ground_truth, 10) >= 0.95
-
-
-def test_classmax_topk_scan_split_fused_identity():
-    """Fused split select (kernel-resident exact top-kb) must be
-    BIT-IDENTICAL to classmax_scan_split + lax.top_k, keep1 and keep2
-    (same first-lane tie semantics as the v5 fastflat kernel)."""
-    import jax
-
-    from shine_tpu.ops.pallas_scan_split import (
-        classmax_scan_split,
-        classmax_topk_scan_split,
-        pack_split_tables,
-        pack_split_query,
-    )
-
-    rng = np.random.default_rng(3)
-    n, d, B, cls, tn, tq, kb = 8192, 96, 256, 512, 4096, 128, 32
-    base = rng.normal(size=(n, d)).astype(np.float32)
-    comp, aux = pack_split_tables(base, 0, n, comp_dtype=np.int8)
-    comp, aux = jnp.asarray(comp), jnp.asarray(aux)
-    q = pack_split_query(
-        jnp.asarray(rng.normal(size=(B, d)).astype(np.float32)),
-        comp.shape[1],
-    )
-
-    for keep2 in (False, True):
-        ref = classmax_scan_split(
-            comp, aux, q, tq=tq, tn=tn, cls=cls, keep2=keep2,
-            interpret=True,
-        )
-        fused = classmax_topk_scan_split(
-            comp, aux, q, kb=kb, tq=tq, tn=tn, cls=cls, keep2=keep2,
-            interpret=True,
-        )
-        m1, a1 = ref[0], ref[1]
-        ms, sel = jax.lax.top_k(m1, kb)
-        assert (np.asarray(fused[0]) == np.asarray(ms)).all()
-        assert (
-            np.asarray(fused[1])
-            == np.asarray(jnp.take_along_axis(a1, sel, axis=1))
-        ).all()
-        if keep2:
-            v2 = jnp.take_along_axis(ref[2], sel, axis=1)
-            c2 = jnp.take_along_axis(ref[3], sel, axis=1)
-            assert (np.asarray(fused[2]) == np.asarray(v2)).all()
-            assert (np.asarray(fused[3]) == np.asarray(c2)).all()
 
 
 def test_score_trim_matches_bruteforce(rng):
@@ -401,10 +342,10 @@ def test_fastflat_prerank_end_to_end(rng):
 
     ds = synthetic_dataset(n=4096, dim=32, num_queries=64, seed=11, gt_k=10)
     for cls_idx in (FastFlatIndex, SplitFlatIndex):
-        idx = cls_idx(ds.base, interpret=True)
-        base_i, _ = idx.search(ds.queries, 10, kb=32, tq=64, batch_size=64)
+        idx = cls_idx(ds.base)
+        base_i, _ = idx.search(ds.queries, 10, kb=32, batch_size=64)
         trim_i, _ = idx.search(
-            ds.queries, 10, kb=32, tq=64, batch_size=64, prerank=16
+            ds.queries, 10, kb=32, batch_size=64, prerank=16
         )
         r0 = recall_at_k(base_i, ds.ground_truth, 10)
         r1 = recall_at_k(trim_i, ds.ground_truth, 10)
@@ -418,8 +359,8 @@ def test_fastflat_megabatch_identity(rng):
     from shine_tpu.models.flat import FastFlatIndex
 
     ds = synthetic_dataset(n=4096, dim=32, num_queries=192, seed=7, gt_k=10)
-    idx = FastFlatIndex(ds.base, interpret=True)
-    kw = dict(k=10, kb=16, tq=64, batch_size=64)
+    idx = FastFlatIndex(ds.base)
+    kw = dict(k=10, kb=16, batch_size=64)
     loop_i, loop_d = idx.search(ds.queries, **kw)
     mega_i, mega_d = idx.search(ds.queries, megabatch=True, **kw)
     assert (loop_i == mega_i).all()
@@ -436,9 +377,9 @@ def test_search_device_matches_host(rng):
 
     ds = synthetic_dataset(n=4096, dim=32, num_queries=192, seed=11,
                            gt_k=10)
-    idx = FastFlatIndex(ds.base, interpret=True)  # shuffle on: perm path
+    idx = FastFlatIndex(ds.base)  # shuffle on: perm path
     assert idx.perm is not None
-    kw = dict(kb=16, tq=64, batch_size=64)
+    kw = dict(kb=16, batch_size=64)
     host_i, host_d = idx.search(ds.queries, 10, **kw)
     pre = idx.preload(ds.queries, batch_size=64)
     for mega in (False, True):
@@ -453,8 +394,8 @@ def test_split_megabatch_identity(rng):
     from shine_tpu.models.flat import SplitFlatIndex
 
     ds = synthetic_dataset(n=4096, dim=32, num_queries=192, seed=9, gt_k=10)
-    idx = SplitFlatIndex(ds.base, interpret=True)
-    kw = dict(k=10, kb=16, tq=64, batch_size=64, cls=256)
+    idx = SplitFlatIndex(ds.base)
+    kw = dict(k=10, kb=16, batch_size=64, cls=256)
     loop_i, loop_d = idx.search(ds.queries, **kw)
     mega_i, mega_d = idx.search(ds.queries, megabatch=True, **kw)
     assert (loop_i == mega_i).all()
